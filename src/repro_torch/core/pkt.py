@@ -1,0 +1,690 @@
+"""PKT — level-synchronous parallel truss decomposition (paper Algorithms 4+5).
+
+The PyTorch port of the JAX package's ``core/pkt.py`` (see DESIGN.md §2 for
+the mapping from the OpenMP original):
+
+  * SCAN            → dense masked compare over the support vector S
+  * curr/next       → boolean frontier vectors (inCurr/processed); the "next"
+                      buffer is recovered as  alive ∧ (S == l)  after update
+  * atomicSub+clamp → per-wedge decrements folded with integer adds, then
+                      S ← max(S − dec, l)  (identical fixed point, bitwise
+                      deterministic)
+  * tie-break       → the paper's "lowest frontier edge id processes the
+                      triangle" predicate, evaluated per wedge hit
+  * dynamic sched.  → chunk skipping over the flat peel wedge table
+
+Three peel executors (``mode`` / ``peel_mode``), bitwise identical:
+  mode="kernel" (default): ``kernels/peel.py`` — the hand-written CUDA kernel
+                 on the card (one launch per sub-level over all chunks, the
+                 active mask read on the device), its plain PyTorch version
+                 on CPU tensors.
+  mode="chunked": torch ops over the rows of the active chunks only.
+  mode="dense":  torch ops over the whole table every sub-level, masked.
+
+The support phase has its own executor axis (``support_mode`` ∈
+``core.support.SUPPORT_MODES``: "kernel", "torch").
+
+**The loops run on the host.**  The JAX package keeps the level and
+sub-level loops on the device (``lax.while_loop``).  Here Python drives them
+and reads one small tensor per sub-level: ``[any(inCurr), #processed]`` as
+one ``.tolist()``, which answers both the sub-level test and, when the level
+ends, the level test.  A decomposition therefore syncs once per sub-level;
+each compaction segment adds one sync for its live count at the start and
+the copy of its results at the end.  The level value ``l`` never leaves the
+device.
+
+The peel runs over *extended* edge state: slot ``m`` is the sentinel, and
+any edge slot marked processed in ``processed0`` with sentinel support in
+``S_ext0`` is inert padding (compacted subproblems use this).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import time
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from repro_torch.core import support as support_mod
+from repro_torch.device import resolve_device, synchronize
+from repro_torch.graphs.csr import CSRGraph, edge_keys
+from repro_torch.kernels import peel as peel_kernel
+from repro_torch.kernels import wedge_common
+
+_SENTINEL_S = 1 << 30
+
+PEEL_MODES = ("chunked", "dense", "kernel")
+
+
+class PeelTables(NamedTuple):
+    """Device-resident static tables for the peel phase (padded to chunks)."""
+
+    e1: torch.Tensor         # (n_chunks*C,) int32, sentinel m
+    cand_slot: torch.Tensor  # (n_chunks*C,) int32, sentinel 0
+    lo: torch.Tensor         # (n_chunks*C,) int32, sentinel 0
+    hi: torch.Tensor         # (n_chunks*C,) int32, sentinel 0  (lo==hi → miss)
+    c_start: torch.Tensor    # (m,) int32   first chunk containing edge e
+    c_end: torch.Tensor      # (m,) int32   last chunk containing edge e (incl.)
+    has_entries: torch.Tensor  # (m,) bool
+
+
+@dataclasses.dataclass(frozen=True)
+class PKTResult:
+    """Full output of one ``pkt`` decomposition, with phase accounting."""
+
+    trussness: np.ndarray   # (m,) int32, >= 2
+    support: np.ndarray     # (m,) int32 initial support
+    levels: int             # number of peel levels executed
+    sublevels: int          # total sub-level iterations (paper's S)
+    compactions: int = 0    # live-edge compactions performed (DESIGN.md §10)
+    #: phase wall-times {tables, support, peel, compact} — populated only
+    #: when ``pkt(..., phase_timings=True)`` (each phase is synced before
+    #: the clock is read, so attribution is honest but adds barriers)
+    phases: dict | None = None
+
+
+def chunk_ranges(off: np.ndarray, chunk: int,
+                 m_out: int | None = None) -> tuple[np.ndarray, np.ndarray,
+                                                    np.ndarray]:
+    """Per-edge chunk-range bookkeeping from a wedge-table offset array.
+
+    Returns (has_entries, c_start, c_end), each of length ``m_out`` (edges
+    beyond ``off``'s m are inert padding: no entries, range 0).
+    """
+    m = off.shape[0] - 1
+    m_out = m if m_out is None else m_out
+    has = np.zeros(m_out, bool)
+    c_start = np.zeros(m_out, np.int32)
+    c_end = np.zeros(m_out, np.int32)
+    if m == 0 or off[-1] == 0:
+        # empty graph, or a table with no entries (triangle-free
+        # orientation): every edge has an empty chunk range
+        return has, c_start, c_end
+    has[:m] = off[1:] > off[:-1]
+    c_start[:m] = off[:-1] // chunk
+    c_end[:m] = np.maximum(off[1:] - 1, 0) // chunk
+    return has, c_start, c_end
+
+
+def _host_tables(e1, cand, lo, hi, has, c_start, c_end,
+                 device: torch.device) -> PeelTables:
+    """Upload host-built peel-table arrays."""
+    def up(a):
+        return torch.tensor(a, device=device)
+
+    return PeelTables(e1=up(e1), cand_slot=up(cand), lo=up(lo), hi=up(hi),
+                      c_start=up(c_start), c_end=up(c_end),
+                      has_entries=up(has))
+
+
+def prepare_peel(tab: support_mod.WedgeTable, m: int, chunk: int | None, *,
+                 device="cuda") -> tuple[PeelTables, int, int]:
+    """Clamp ``chunk`` to the table, pad, and upload; returns
+    ``(tables, chunk, n_chunks)``.
+
+    The chunk layout policy lives in ``kernels.wedge_common.chunk_layout``:
+    a chunk larger than the table, zero, or negative is clamped so that
+    ``n_chunks >= 1``.  A table with no entries at all (the empty graph, or
+    a triangle-free orientation) takes an explicit early exit: one
+    all-padding chunk of size 1, every edge marked entry-less.
+    """
+    device = resolve_device(device)
+    if tab.size == 0:
+        return _empty_peel_tables(m, device), 1, 1
+    chunk, n_chunks = wedge_common.chunk_layout(tab.size, chunk)
+    e1, cand, lo, hi = wedge_common.pad_chunked(
+        tab.e1, tab.cand_slot, tab.lo, tab.hi,
+        m=m, chunk=chunk, n_chunks=n_chunks)
+    has, c_start, c_end = chunk_ranges(tab.off, chunk)
+    tabs = _host_tables(e1, cand, lo, hi, has, c_start, c_end, device)
+    return tabs, chunk, n_chunks
+
+
+def _empty_peel_tables(m: int, device: torch.device) -> PeelTables:
+    """One all-padding chunk of size 1; every edge entry-less."""
+    return PeelTables(
+        e1=torch.full((1,), m, dtype=torch.int32, device=device),
+        cand_slot=torch.zeros(1, dtype=torch.int32, device=device),
+        lo=torch.zeros(1, dtype=torch.int32, device=device),
+        hi=torch.zeros(1, dtype=torch.int32, device=device),
+        c_start=torch.zeros(m, dtype=torch.int32, device=device),
+        c_end=torch.zeros(m, dtype=torch.int32, device=device),
+        has_entries=torch.zeros(m, dtype=torch.bool, device=device),
+    )
+
+
+def prepare_peel_device(g: CSRGraph, chunk: int | None, *,
+                        m_out: int | None = None, m_real: int | None = None,
+                        device="cuda") -> tuple[PeelTables, int, int]:
+    """Device-built peel tables for ``g``, pow2-padded (DESIGN.md §10).
+
+    The table entry count is bounded on the host (O(m)), rows are
+    materialized on the device to the next power of two, and the chunk-range
+    metadata is computed alongside.  ``m_out`` (default ``g.m``) sizes the
+    edge state space (compacted subproblems pad it to a pow2 bucket);
+    ``m_real`` marks how many leading edge slots are real.
+    """
+    device = resolve_device(device)
+    m_out = g.m if m_out is None else m_out
+    m_real = g.m if m_real is None else m_real
+    size = support_mod.peel_table_size(g)
+    if size == 0:
+        return _empty_peel_tables(m_out, device), 1, 1
+    size_pad = wedge_common.next_pow2(size)
+    support_mod._check_table_size(size_pad)
+    chunk_eff = wedge_common.pow2_chunk(size_pad, chunk, size=size)
+    n_chunks = size_pad // chunk_eff
+    if m_out != g.m:
+        # pow2 bucket (compacted callers): pad the edge and vertex arrays as
+        # the JAX package does, so the rows and sentinels come out identical
+        u = torch.tensor(wedge_common.pad1(g.El[:, 0], m_out, 0), device=device)
+        v = torch.tensor(wedge_common.pad1(g.El[:, 1], m_out, 0), device=device)
+        n_es = wedge_common.next_pow2(g.n + 1)
+        Es = torch.tensor(wedge_common.pad1(g.Es, n_es, 2 * g.m),
+                          device=device)
+    else:
+        dev = g.device_arrays(device)
+        u, v, Es = dev["u"], dev["v"], dev["Es"]
+    e1, cand, lo, hi, _off, c_start, c_end, has = \
+        support_mod._build_peel_table_dev(u, v, Es, m_real, m=m_out,
+                                          size=size_pad, chunk=chunk_eff)
+    tabs = PeelTables(e1=e1, cand_slot=cand, lo=lo, hi=hi, c_start=c_start,
+                      c_end=c_end, has_entries=has)
+    return tabs, chunk_eff, n_chunks
+
+
+def _active_chunk_mask(inCurr, tabs: PeelTables, m: int, n_chunks: int):
+    """Chunks overlapping any frontier edge's wedge-entry range (bool mask).
+
+    A difference array over chunk ids: +1 at each frontier edge's first
+    chunk, −1 after its last, prefix-summed — all on the device.  Every
+    edge adds (0 when it is off the frontier) at its *own* chunks: routing
+    the zeros to one spare slot, as the JAX package's ``where(curr, c,
+    n_chunks)`` does, sends nearly all m atomic adds to a single address,
+    which serialized this function into most of the peel's device time on
+    the H100 (PERF.md, section 5).
+    """
+    curr_edges = (inCurr[:m] & tabs.has_entries).to(torch.int32)
+    delta = torch.zeros(n_chunks + 1, dtype=torch.int32, device=inCurr.device)
+    delta.index_add_(0, tabs.c_start, curr_edges)
+    delta.index_add_(0, tabs.c_end + 1, -curr_edges)
+    return torch.cumsum(delta[:n_chunks], 0, dtype=torch.int32) > 0
+
+
+def _decrements(mode: str, N, Eid, S_ext, processed, inCurr, l, tabs, *,
+                pinned, m: int, chunk: int, n_chunks: int, iters: int):
+    """One sub-level's (m+1,) int32 decrement vector, by the chosen executor."""
+    if mode == "kernel":
+        active = _active_chunk_mask(inCurr, tabs, m, n_chunks)
+        return peel_kernel.peel_decrement_fold(
+            active, l.reshape(1), tabs.e1, tabs.cand_slot, tabs.lo, tabs.hi,
+            N, Eid, S_ext, processed, inCurr, pinned, chunk=chunk,
+            n_chunks=n_chunks, iters=iters, m=m)
+    dec = torch.zeros(m + 1, dtype=torch.int32, device=S_ext.device)
+    if mode == "dense":
+        # every row of the table, every sub-level, frontier-masked
+        for start, stop in wedge_common.row_slices(n_chunks * chunk):
+            peel_kernel.decrement_rows(
+                dec, tabs.e1[start:stop], tabs.cand_slot[start:stop],
+                tabs.lo[start:stop], tabs.hi[start:stop], N, Eid, S_ext,
+                processed, inCurr, pinned, l, iters=iters)
+        return dec
+    # chunked: visit only the chunks overlapping the frontier (one host
+    # sync for the chunk list); of their rows, probe the frontier anchors
+    ids = torch.nonzero(_active_chunk_mask(inCurr, tabs, m, n_chunks))[:, 0]
+    per = max(1, wedge_common.SLICE_ROWS // chunk)
+    offs = torch.arange(chunk, device=S_ext.device, dtype=torch.int64)
+    for i in range(0, ids.shape[0], per):
+        rows = (ids[i:i + per, None] * chunk + offs).reshape(-1)
+        rows = rows[inCurr[tabs.e1[rows]]]
+        peel_kernel.decrement_rows(
+            dec, tabs.e1[rows], tabs.cand_slot[rows], tabs.lo[rows],
+            tabs.hi[rows], N, Eid, S_ext, processed, inCurr, pinned, l,
+            iters=iters)
+    return dec
+
+
+def _peel_loop(N, Eid, S_ext0, processed0, tabs: PeelTables, *, m: int,
+               chunk: int, n_chunks: int, iters: int, mode: str, pinned=None,
+               stop_live: int = 0):
+    """Full level/sub-level peel over extended (m+1,) edge state.
+
+    ``S_ext0``/``processed0`` define which slots are live: slot m must be the
+    processed sentinel, and callers may pre-mark extra padding slots as
+    processed.  Returns (S_ext, processed, levels, sublevels) — the full
+    extended state, so segmented callers can resume.
+
+    ``pinned`` (optional (m+1,) bool) marks *schedule* edges: they enter the
+    frontier and process their triangles at exactly their initial support
+    level, but never receive decrements themselves.  Slot m must be False.
+
+    ``stop_live`` is the live-edge compaction early exit (DESIGN.md §10):
+    the level loop returns once the number of unprocessed edges drops to or
+    below it — always at a level boundary, so the caller can gather the
+    survivors into a compacted edge space and continue bitwise identically.
+    """
+    S_ext, processed = S_ext0, processed0
+    todo = (m + 1) - int(processed.sum())
+    levels = subs = 0
+    while todo > stop_live:
+        alive_S = torch.where(processed, _SENTINEL_S, S_ext)
+        l = alive_S.min()  # skip ahead to the next populated level; stays on device
+        inCurr = ~processed & (S_ext == l)
+        inCurr[m] = False
+        levels += 1
+        # the frontier of a level's first sub-level is never empty: some
+        # live edge holds the minimum support
+        while True:
+            dec = _decrements(mode, N, Eid, S_ext, processed, inCurr, l, tabs,
+                              pinned=pinned, m=m, chunk=chunk,
+                              n_chunks=n_chunks, iters=iters)
+            S_ext = torch.where(~processed & ~inCurr & (dec > 0),
+                                torch.maximum(S_ext - dec, l), S_ext)
+            processed = processed | inCurr
+            inCurr = ~processed & (S_ext == l)
+            inCurr[m] = False
+            subs += 1
+            more, n_done = torch.stack(
+                [inCurr.any().to(torch.int64), processed.sum()]).tolist()
+            if not more:
+                break
+        todo = (m + 1) - n_done
+    return S_ext, processed, levels, subs
+
+
+# --- live-edge compaction (DESIGN.md §10) -----------------------------------
+#
+# Segments of the peel run under a live-edge early exit; between segments
+# the surviving edges are gathered into a compacted edge space — vertices
+# rank-relabeled, CSR rebuilt, the peel table rebuilt over only live edges
+# at the next pow2 size, and the (S, processed, pinned) state remapped.  The
+# relabeling is order-preserving, so the lowest-edge-id tie-break picks the
+# same winners and the continuation is bitwise identical: levels,
+# sub-levels and the fixed point all match the uncompacted run.
+
+#: default compaction policy: compact when the live fraction drops below
+#: ``_COMPACT_FRAC``, but never bother below ``_COMPACT_MIN`` live edges
+_COMPACT_FRAC = 0.25
+_COMPACT_MIN = 1 << 11
+_MIN_M_PAD = 8
+
+
+def _make_subproblem(El_rows: np.ndarray, ids: np.ndarray,
+                     S_rows: np.ndarray, pinned_rows: np.ndarray | None, *,
+                     chunk_req: int | None, table_mode: str,
+                     device: torch.device) -> dict:
+    """Compact ``El_rows`` (live edges, ascending original order) into a
+    fresh pow2-bucketed peel problem.
+
+    ``ids`` maps each row to the caller's output slot; ``S_rows`` carries
+    the live supports (the continuation state), ``pinned_rows`` the pinned
+    schedule marks (or None).  Vertex ids are rank-relabeled —
+    order-preserving, so ``build_csr``'s lexicographic edge ids keep the
+    input row order and the peel tie-break is unchanged.
+    """
+    from repro_torch.graphs.csr import build_csr
+
+    m_sub = El_rows.shape[0]
+    verts = np.unique(El_rows)
+    E_sub = np.searchsorted(verts, El_rows).astype(np.int64)
+    g_sub = build_csr(E_sub, verts.shape[0])
+    m_pad = max(_MIN_M_PAD, wedge_common.next_pow2(m_sub))
+
+    if table_mode == "device":
+        tabs, chunk_eff, n_chunks = prepare_peel_device(
+            g_sub, chunk_req, m_out=m_pad, m_real=m_sub, device=device)
+    else:
+        tab = support_mod.build_peel_table(g_sub)
+        if tab.size == 0:
+            tabs, chunk_eff, n_chunks = _empty_peel_tables(m_pad, device), 1, 1
+        else:
+            size_pad = wedge_common.next_pow2(tab.size)
+            chunk_eff = wedge_common.pow2_chunk(size_pad, chunk_req,
+                                                size=tab.size)
+            n_chunks = size_pad // chunk_eff
+            e1, cand, lo, hi = wedge_common.pad_chunked(
+                tab.e1, tab.cand_slot, tab.lo, tab.hi,
+                m=m_pad, chunk=chunk_eff, n_chunks=n_chunks)
+            has, c_start, c_end = chunk_ranges(tab.off, chunk_eff,
+                                               m_out=m_pad)
+            tabs = _host_tables(e1, cand, lo, hi, has, c_start, c_end, device)
+
+    S_ext0 = np.full(m_pad + 1, _SENTINEL_S, np.int32)
+    S_ext0[:m_sub] = S_rows
+    processed0 = np.ones(m_pad + 1, bool)
+    processed0[:m_sub] = False
+    ids_pad = np.full(m_pad, -1, np.int64)
+    ids_pad[:m_sub] = ids
+    pinned = None
+    pinned_np = None
+    if pinned_rows is not None and pinned_rows.any():
+        pinned_np = np.zeros(m_pad + 1, bool)
+        pinned_np[:m_sub] = pinned_rows
+        pinned = torch.tensor(pinned_np, device=device)
+    return dict(
+        N=torch.tensor(wedge_common.pad1(g_sub.N, 2 * m_pad,
+                                         wedge_common.PAD_N), device=device),
+        Eid=torch.tensor(wedge_common.pad1(g_sub.Eid, 2 * m_pad, m_pad),
+                         device=device),
+        tabs=tabs, chunk=chunk_eff, n_chunks=n_chunks,
+        iters=int(np.ceil(np.log2(2 * m_pad + 1))) + 1, m=m_pad, live=m_sub,
+        S_ext0=torch.tensor(S_ext0, device=device),
+        processed0=torch.tensor(processed0, device=device),
+        pinned=pinned, pinned_np=pinned_np, El=g_sub.El, ids=ids_pad)
+
+
+def _segmented_peel(problem: dict, out: np.ndarray, *, mode: str,
+                    table_mode: str, compact_frac: float | None,
+                    compact_min: int, chunk_req: int | None,
+                    device: torch.device,
+                    timings: dict | None = None) -> tuple[int, int, int]:
+    """Run ``problem`` to the fixed point, compacting between segments.
+
+    Each segment peels until ≤ ``compact_frac · m`` edges remain live (or to
+    completion when compaction is off / the problem is below
+    ``compact_min``); finished edges scatter their final S into ``out`` (at
+    ``problem['ids']`` slots) and survivors are re-bucketed via
+    ``_make_subproblem``.  Returns (levels, sublevels, compactions).
+    """
+    levels = subs = compactions = 0
+    while True:
+        m = problem["m"]
+        n_live = problem["live"]
+        live_target = 0
+        if compact_frac and n_live > compact_min:
+            # clamp below the live count so every segment must retire at
+            # least one level before the loop considers compacting again
+            live_target = min(int(compact_frac * m), n_live - 1)
+        t0 = time.perf_counter()
+        S_ext, processed, lv, sb = _peel_loop(
+            problem["N"], problem["Eid"], problem["S_ext0"],
+            problem["processed0"], problem["tabs"], m=m,
+            chunk=problem["chunk"], n_chunks=problem["n_chunks"],
+            iters=problem["iters"], mode=mode, pinned=problem["pinned"],
+            stop_live=live_target)
+        S_np = S_ext[:m].cpu().numpy()
+        proc_np = processed[:m].cpu().numpy()
+        levels += lv
+        subs += sb
+        if timings is not None:
+            timings["peel"] = timings.get("peel", 0.0) + \
+                (time.perf_counter() - t0)
+        ids = problem["ids"]
+        live = ~proc_np
+        dead = proc_np & (ids >= 0)
+        out[ids[dead]] = S_np[dead]
+        if not live.any():
+            return levels, subs, compactions
+        # ≤ live_target survivors: gather them into a compacted edge space
+        t0 = time.perf_counter()
+        compactions += 1
+        live_idx = np.nonzero(live)[0]
+        pin_np = problem["pinned_np"]
+        problem = _make_subproblem(
+            problem["El"][live_idx], ids[live_idx], S_np[live_idx],
+            None if pin_np is None else pin_np[:m][live_idx],
+            chunk_req=chunk_req, table_mode=table_mode, device=device)
+        if problem["live"] >= n_live:
+            raise AssertionError("compaction must strictly shrink the problem")
+        if timings is not None:
+            synchronize(device)
+            timings["compact"] = timings.get("compact", 0.0) + \
+                (time.perf_counter() - t0)
+
+
+def peel_live_subset(El: np.ndarray, live_ids: np.ndarray,
+                     S0_live: np.ndarray,
+                     pinned_live: np.ndarray | None = None, *,
+                     chunk: int | None = None, mode: str = "kernel",
+                     table_mode: str = "device",
+                     compact_frac: float | None = _COMPACT_FRAC,
+                     compact_min: int = _COMPACT_MIN,
+                     device="cuda") -> np.ndarray:
+    """Peel a subset of a graph's edges in a compacted edge space.
+
+    ``live_ids`` (strictly increasing edge ids into ``El``) are gathered
+    into a compact pow2-bucketed subproblem — only their induced subgraph
+    is materialized — and peeled to the fixed point (with further compaction
+    as the subset shrinks).  ``S0_live`` seeds the per-edge state;
+    ``pinned_live`` marks schedule edges exactly as in ``_peel_loop``.
+    Returns the final S per ``live_ids`` row.
+    """
+    if mode not in PEEL_MODES:
+        raise ValueError(f"mode must be one of {PEEL_MODES}, got {mode!r}")
+    device = resolve_device(device)
+    live_ids = np.asarray(live_ids, dtype=np.int64)
+    k = live_ids.shape[0]
+    if k == 0:
+        return np.zeros(0, np.int32)
+    if k > 1 and not (np.diff(live_ids) > 0).all():
+        # ascending ids are what make the compacted relabeling
+        # order-preserving — the tie-break replay is silently wrong otherwise
+        raise ValueError("live_ids must be strictly increasing edge ids")
+    out = np.zeros(k, np.int32)
+    problem = _make_subproblem(
+        np.asarray(El)[live_ids], np.arange(k, dtype=np.int64),
+        np.asarray(S0_live, dtype=np.int32),
+        None if pinned_live is None else np.asarray(pinned_live, bool),
+        chunk_req=chunk, table_mode=table_mode, device=device)
+    _segmented_peel(problem, out, mode=mode, table_mode=table_mode,
+                    compact_frac=compact_frac, compact_min=compact_min,
+                    chunk_req=chunk, device=device)
+    return out
+
+
+def pkt(g: CSRGraph, *, chunk: int | None = None, mode: str = "kernel",
+        peel_mode: str | None = None, support_mode: str = "kernel",
+        table_mode: str | None = None,
+        support_table: support_mod.WedgeTable | None = None,
+        peel_table: support_mod.WedgeTable | None = None,
+        compact_frac: float | None = _COMPACT_FRAC,
+        compact_min: int = _COMPACT_MIN,
+        phase_timings: bool = False, device="cuda") -> PKTResult:
+    """Full PKT truss decomposition of one CSR graph.
+
+    Every executor pairing produces bitwise-identical results, equal to the
+    JAX package's ``repro.core.pkt.pkt``.
+
+    Args:
+        g: the graph as a :class:`~repro_torch.graphs.csr.CSRGraph`.
+        chunk: wedge-table chunk size (pow2; ``None`` derives it from the
+            table size, see ``kernels.wedge_common.auto_chunk``).
+        mode: peel executor — one of ``PEEL_MODES`` ("chunked", "dense",
+            "kernel"); alias ``peel_mode`` wins when both are given.
+        peel_mode: alias for ``mode``.
+        support_mode: support executor — one of
+            ``support.SUPPORT_MODES`` ("torch", "kernel").
+        table_mode: where the wedge tables are built
+            (``support.TABLE_MODES``): "device" — the default, unless
+            prebuilt host tables are passed — or "numpy" (built on the host,
+            kept as the parity oracle).
+        support_table: optional prebuilt host support table (implies
+            ``table_mode="numpy"`` unless overridden).
+        peel_table: optional prebuilt host peel table (same implication).
+        compact_frac: live-edge compaction threshold (DESIGN.md §10): once
+            a peel segment leaves fewer than ``compact_frac · m`` edges
+            live (and more than ``compact_min``), survivors are gathered
+            into a compacted subproblem and peeling re-enters there.
+            ``None`` disables compaction; results are bitwise identical
+            either way.
+        compact_min: minimum live-edge count for compaction to trigger.
+        phase_timings: populate ``PKTResult.phases`` with a
+            {tables, support, peel, compact} wall-time split (adds sync
+            barriers between phases).
+        device: "cuda" (the default; raises when no card is present) or
+            "cpu", where every "kernel" executor runs its plain version.
+
+    Returns:
+        :class:`PKTResult` — per-edge trussness (support + 2, aligned to
+        ``g.El`` rows), initial support, and loop/compaction counters.
+
+    Raises:
+        ValueError: unknown ``mode`` / ``support_mode`` / ``table_mode``.
+        RuntimeError: ``device`` is CUDA and no card is present.
+    """
+    mode = mode if peel_mode is None else peel_mode
+    if mode not in PEEL_MODES:
+        raise ValueError(f"mode must be one of {PEEL_MODES}, got {mode!r}")
+    if support_mode not in support_mod.SUPPORT_MODES:
+        raise ValueError(f"support_mode must be one of "
+                         f"{support_mod.SUPPORT_MODES}, got {support_mode!r}")
+    if table_mode is None:
+        table_mode = ("numpy" if (support_table is not None
+                                  or peel_table is not None) else "device")
+    if table_mode not in support_mod.TABLE_MODES:
+        raise ValueError(f"table_mode must be one of "
+                         f"{support_mod.TABLE_MODES}, got {table_mode!r}")
+    device = resolve_device(device)
+    timings: dict | None = {} if phase_timings else None
+    if g.m == 0:
+        return PKTResult(np.zeros(0, np.int32), np.zeros(0, np.int32), 0, 0,
+                         phases=timings)
+
+    # ---- support phase -----------------------------------------------------
+    if table_mode == "device" and support_table is None:
+        S0_dev = support_mod._support_device(
+            g, mode=support_mode, chunk=chunk, device=device, timings=timings)
+        S0 = S0_dev.cpu().numpy()
+    else:
+        t0 = time.perf_counter()
+        stab = (support_table if support_table is not None
+                else support_mod.build_support_table(g))
+        if timings is not None:
+            timings["tables"] = timings.get("tables", 0.0) + \
+                (time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        S0 = support_mod.compute_support(
+            g, stab, mode=support_mode, chunk=chunk, device=device)
+        S0_dev = torch.tensor(S0, device=device)
+        if timings is not None:
+            timings["support"] = timings.get("support", 0.0) + \
+                (time.perf_counter() - t0)
+
+    # ---- peel tables -------------------------------------------------------
+    t0 = time.perf_counter()
+    if table_mode == "device" and peel_table is None:
+        tabs, chunk_eff, n_chunks = prepare_peel_device(g, chunk,
+                                                        device=device)
+    else:
+        ptab = (peel_table if peel_table is not None
+                else support_mod.build_peel_table(g))
+        tabs, chunk_eff, n_chunks = prepare_peel(ptab, g.m, chunk,
+                                                 device=device)
+    if timings is not None:
+        synchronize(device)
+        timings["tables"] = timings.get("tables", 0.0) + \
+            (time.perf_counter() - t0)
+
+    # ---- segmented peel with live-edge compaction --------------------------
+    dev = g.device_arrays(device)
+    m = g.m
+    S_ext0 = torch.cat([S0_dev.to(torch.int32),
+                        torch.full((1,), _SENTINEL_S, dtype=torch.int32,
+                                   device=device)])
+    processed0 = torch.zeros(m + 1, dtype=torch.bool, device=device)
+    processed0[m] = True
+    problem = dict(
+        N=dev["N"], Eid=dev["Eid"], tabs=tabs, chunk=chunk_eff,
+        n_chunks=n_chunks, iters=support_mod._search_iters(g), m=m, live=m,
+        S_ext0=S_ext0, processed0=processed0, pinned=None, pinned_np=None,
+        El=g.El, ids=np.arange(m, dtype=np.int64))
+    S_out = np.zeros(m, np.int32)
+    levels, subs, compactions = _segmented_peel(
+        problem, S_out, mode=mode, table_mode=table_mode,
+        compact_frac=compact_frac, compact_min=compact_min, chunk_req=chunk,
+        device=device, timings=timings)
+    return PKTResult(
+        trussness=S_out.astype(np.int32) + 2,
+        support=S0,
+        levels=levels,
+        sublevels=subs,
+        compactions=compactions,
+        phases=timings,
+    )
+
+
+def align_to_input(trussness: np.ndarray, g: CSRGraph,
+                   edges: np.ndarray | None, n: int, *,
+                   keys: np.ndarray | None = None) -> np.ndarray:
+    """Map per-``g.El``-row trussness back to the caller's edge order.
+
+    ``edges`` must be the canonical (u<v) edge array ``g`` was built from
+    (possibly in a different row order); ``g.El`` rows are lexicographically
+    sorted, so each input edge is located by key search.  Callers that
+    already hold per-row keys (``u*n + v`` in g's id space) may pass ``keys``
+    instead of ``edges``.  A key missing from ``g.El`` raises a descriptive
+    ValueError.
+    """
+    key_g = edge_keys(g.El[:, 0], g.El[:, 1], n)
+    if keys is None:
+        keys = edge_keys(edges[:, 0], edges[:, 1], n)
+    keys = np.asarray(keys, dtype=np.int64)
+    if key_g.shape[0] == 0:
+        if keys.shape[0] == 0:
+            return np.zeros(0, np.int64)
+        raise ValueError(
+            f"cannot align {keys.shape[0]} edge(s) to an empty graph")
+    pos = np.searchsorted(key_g, keys)
+    safe = np.minimum(pos, key_g.shape[0] - 1)
+    bad = (pos >= key_g.shape[0]) | (key_g[safe] != keys)
+    if bad.any():
+        k = int(keys[bad][0])
+        raise ValueError(
+            f"{int(bad.sum())} edge(s) not present in the graph's edge list; "
+            f"first missing: ({k // n}, {k % n})")
+    return trussness[pos].astype(np.int64)
+
+
+def preprocess(edges, *, reorder: bool = True):
+    """Host preprocessing of ``truss_pkt``: rows → ``(g, n, row_keys)``.
+
+    Validates and canonicalizes the rows (endpoint order free, duplicates
+    allowed), relabels vertices by increasing coreness when ``reorder`` (the
+    paper's preprocessing), and builds the CSR graph.  ``row_keys`` locates
+    each input row's edge in ``g`` for ``align_to_input``.
+    """
+    from repro_torch.graphs.csr import (build_csr, canonical_edges_with_rows,
+                                        degeneracy_order, relabel)
+
+    E, lo, hi, n = canonical_edges_with_rows(edges)
+    if E.size == 0:
+        return build_csr(E, 0), 0, np.zeros(0, np.int64)
+    if reorder:
+        perm = degeneracy_order(E, n)
+        r_edges = relabel(E, perm)
+        rl, rh = perm[lo], perm[hi]
+        row_keys = edge_keys(np.minimum(rl, rh), np.maximum(rl, rh), n)
+    else:
+        r_edges = E
+        row_keys = edge_keys(lo, hi, n)
+    return build_csr(r_edges, n), n, row_keys
+
+
+def truss_pkt(edges: np.ndarray, *, reorder: bool = True,
+              chunk: int | None = None, mode: str = "kernel",
+              support_mode: str = "kernel",
+              table_mode: str | None = None,
+              compact_frac: float | None = _COMPACT_FRAC,
+              compact_min: int = _COMPACT_MIN,
+              device="cuda") -> np.ndarray:
+    """Convenience entry: undirected edges → trussness aligned to input order.
+
+    ``edges`` is any (k, 2) integer array: endpoint order is free and
+    duplicate rows are allowed — rows are canonicalized and deduped exactly
+    like ``TrussEngine.submit`` before decomposition, and the result is
+    mapped back so ``out[i]`` is the trussness of ``edges[i]``.  Self-loops,
+    negative vertex ids, and ids beyond the int32 CSR / int64 key-packing
+    bounds are rejected.  With ``reorder`` (the paper's preprocessing)
+    vertices are relabeled by increasing coreness before decomposition.
+    Runs on ``device`` ("cuda" by default; raises when no card is present).
+    """
+    device = resolve_device(device)
+    g, n, row_keys = preprocess(edges, reorder=reorder)
+    if g.m == 0:
+        return np.zeros(0, np.int64)
+    res = pkt(g, chunk=chunk, mode=mode, support_mode=support_mode,
+              table_mode=table_mode, compact_frac=compact_frac,
+              compact_min=compact_min, device=device)
+    return align_to_input(res.trussness, g, None, n, keys=row_keys)

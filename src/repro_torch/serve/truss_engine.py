@@ -1,0 +1,455 @@
+"""Batched multi-graph truss engine — many small graphs per dispatch.
+
+The serving story for truss decomposition is the opposite of the paper's
+single-giant-graph benchmark: heavy traffic is a *stream* of modest graphs
+(per-user ego nets, transaction neighborhoods, rolling windows) where the
+per-dispatch overhead dominates if each graph is decomposed alone.  This
+engine amortizes it:
+
+  * **Bucketing** — every submission is preprocessed on the host
+    (canonicalize, optional k-core reorder, CSR build) and assigned to a
+    *size class*: all dimensions padded up to powers of two — the same
+    ``SizeClass`` keys as the JAX package, so ``bucket_of`` and
+    ``flush(only=...)`` route traffic the same way.  With the default
+    ``table_mode="device"`` the wedge tables never exist on the host.
+  * **Batching** — the JAX package decomposes a bucket with one
+    ``jax.vmap`` over the stacked, padded operands.  The port has no vmap
+    over its host-driven peel and custom kernels; instead a bucket is
+    decomposed as **one disjoint-union graph** (``CSROperand``): the
+    bucket's graphs side by side, vertex ids offset per graph.  Trussness
+    and support are per-component properties, so one ``pkt`` over the union
+    gives every graph its own result — one support launch and one peel
+    launch per sub-level for the whole bucket.  The per-graph ``levels`` /
+    sub-level counters, which ``flush`` never returned, do not exist here.
+  * **Order-aligned results** — ``submit`` returns a ticket; results are
+    delivered aligned to each submission's own edge-row order regardless of
+    bucket membership or flush timing.
+
+Usage:
+
+    eng = TrussEngine()               # on the card; device="cpu" for tests
+    t1 = eng.submit(edges_a)          # queued
+    t2 = eng.submit(edges_b)          # queued (maybe same bucket)
+    trussness_b = eng.result(t2)      # flushes pending work once
+    trussness_a = eng.result(t1)      # already computed
+
+Submissions larger than ``max_edges`` canonical edges are rejected at
+``submit`` time.  Persistent handles (``open``/``update``/``close``) are not
+ported yet.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import time
+from typing import NamedTuple
+
+import numpy as np
+
+from repro_torch.core import support as support_mod
+from repro_torch.core.pkt import PEEL_MODES, align_to_input, pkt
+from repro_torch.core.ref import truss_numpy
+from repro_torch.device import resolve_device
+from repro_torch.graphs.csr import (CSRGraph, build_csr,
+                                    canonical_edges_with_rows,
+                                    degeneracy_order, edge_keys, relabel)
+from repro_torch.kernels import count_launches, wedge_common
+from repro_torch.kernels.wedge_common import next_pow2 as _next_pow2
+
+_MIN_M_PAD = 8
+
+
+class SizeClass(NamedTuple):
+    """Bucket key: the padded shapes a graph's pipeline depends on."""
+
+    m_pad: int        # padded edge count (pow2)
+    sup_pad: int      # padded support-table length (pow2)
+    peel_pad: int     # padded peel-table length (pow2, multiple of chunk)
+    chunk: int        # peel chunk size (pow2, <= peel_pad)
+    n_chunks: int     # peel_pad // chunk
+    iters: int        # binary-search iteration bound for 2*m_pad-length rows
+    sup_chunk: int    # support-kernel chunk size (pow2, <= sup_pad)
+    sup_n_chunks: int  # sup_pad // sup_chunk
+    n_pad: int        # padded vertex count (pow2; 0 in table_mode="numpy")
+
+
+class CSROperand(NamedTuple):
+    """One bucket's disjoint-union graph: what a flush hands to ``pkt``.
+
+    Graph ``i`` of the bucket owns the union's edge ids
+    ``[edge_off[i], edge_off[i+1])`` in its own ``El`` row order: its
+    vertices are offset past every earlier graph's, so the union's
+    lexicographic edge order keeps each graph's rows contiguous and in
+    order.
+    """
+
+    g: CSRGraph
+    edge_off: np.ndarray    # (k+1,) int64
+
+
+def disjoint_union(graphs: list[CSRGraph]) -> CSROperand:
+    """Place CSR graphs side by side in one CSR graph, without re-sorting.
+
+    Equal to ``build_csr`` of the concatenated, vertex-offset edge lists.
+    """
+    ns = np.array([g.n for g in graphs], np.int64)
+    ms = np.array([g.m for g in graphs], np.int64)
+    v_off = np.concatenate([[0], np.cumsum(ns)])
+    e_off = np.concatenate([[0], np.cumsum(ms)])
+    s_off = 2 * e_off
+    n_tot, m_tot = int(v_off[-1]), int(e_off[-1])
+    if n_tot >= np.iinfo(np.int32).max or 2 * m_tot >= np.iinfo(np.int32).max:
+        raise ValueError(f"bucket union of n={n_tot}, m={m_tot} overflows "
+                         f"the int32 CSR layout")
+    parts = list(zip(graphs, v_off[:-1], e_off[:-1], s_off[:-1]))
+
+    def cat(fn):
+        return np.concatenate([fn(*p) for p in parts]).astype(np.int32)
+
+    u = CSRGraph(
+        n=n_tot, m=m_tot,
+        Es=np.append(cat(lambda g, vo, eo, so: g.Es[:-1] + so),
+                     np.int32(2 * m_tot)),
+        N=cat(lambda g, vo, eo, so: g.N + vo),
+        Eid=cat(lambda g, vo, eo, so: g.Eid + eo),
+        El=np.concatenate([g.El + vo for g, vo, _, _ in parts]).astype(
+            np.int32).reshape(-1, 2),
+        Eo=cat(lambda g, vo, eo, so: g.Eo + so),
+    )
+    return CSROperand(g=u, edge_off=e_off)
+
+
+@dataclasses.dataclass
+class _Pending:
+    ticket: int
+    g: CSRGraph
+    n: int
+    in_keys: np.ndarray       # per input row: canonical key in relabeled space
+    key: SizeClass
+    sup_size: int             # exact support-table rows
+    peel_size: int            # exact peel-table rows
+
+
+class TrussEngine:
+    """Queue API over the batched decomposition pipeline.
+
+    Single-read tickets (``submit``/``flush``/``result``/``map``): graphs
+    of one size class are decomposed together, as one disjoint union, per
+    flush.
+
+    Args:
+        mode: peel executor for every decomposition (see ``core.pkt.pkt``).
+        support_mode: support executor (same axes as ``pkt``).
+        table_mode: where the wedge tables are built — "device" on the
+            device (§10); "numpy" is the host parity oracle.
+        chunk: peel chunk size (rounded up to pow2). ``None`` (default)
+            derives it from the table size (``wedge_common.auto_chunk``).
+        reorder: degeneracy-reorder each submission before decomposition.
+        max_pending: auto-flush threshold — ``submit`` triggers a full
+            ``flush`` once this many submissions are queued.
+        max_edges: reject submissions beyond this many canonical edges.
+        device: "cuda" (default; raises when no card is present) or "cpu".
+
+    Raises:
+        ValueError: unknown mode axis, or non-positive ``chunk`` /
+            ``max_edges``.
+    """
+
+    def __init__(self, *, mode: str = "kernel", support_mode: str = "kernel",
+                 table_mode: str = "device", chunk: int | None = None,
+                 reorder: bool = True, max_pending: int = 32,
+                 max_edges: int = 1 << 22, device="cuda"):
+        if mode not in PEEL_MODES:
+            raise ValueError(f"mode must be one of {PEEL_MODES}, got {mode!r}")
+        if support_mode not in support_mod.SUPPORT_MODES:
+            raise ValueError(f"support_mode must be one of "
+                             f"{support_mod.SUPPORT_MODES}, "
+                             f"got {support_mode!r}")
+        if table_mode not in support_mod.TABLE_MODES:
+            raise ValueError(f"table_mode must be one of "
+                             f"{support_mod.TABLE_MODES}, got {table_mode!r}")
+        if chunk is not None and chunk < 1:
+            raise ValueError("chunk must be positive")
+        if max_edges < 1:
+            raise ValueError("max_edges must be positive")
+        self.device = resolve_device(device)
+        self.mode = mode
+        self.support_mode = support_mode
+        self.table_mode = table_mode
+        self.max_edges = max_edges
+        self.chunk = None if chunk is None else _next_pow2(chunk)
+        self.reorder = reorder
+        self.max_pending = max_pending
+        self._pending: list[_Pending] = []
+        self._results: dict[int, np.ndarray] = {}
+        self._next_ticket = 0
+        self.stats = {
+            "submitted": 0, "flushes": 0, "batches": 0,
+            "buckets": set(), "graph_seconds": 0.0, "graphs_done": 0,
+            # warm_* counts only dispatches whose bucket was seen before —
+            # the steady-state throughput basis
+            "warm_seconds": 0.0, "warm_graphs": 0,
+            # per size class: K1/K2 launches and plain-version calls of its
+            # dispatches (which executor really ran)
+            "bucket_launches": {},
+        }
+
+    # ------------------------------------------------------------- submit --
+    def submit(self, edges: np.ndarray) -> int:
+        """Queue one graph; returns a ticket for ``result``.
+
+        ``edges`` is any (k, 2) integer array of undirected edges (either
+        endpoint order; duplicate rows allowed; self-loops, negative vertex
+        ids and ids beyond the int32 CSR / int64 key-packing bounds
+        rejected).  The result is aligned to the input rows:
+        ``result(t)[i]`` is the trussness of ``edges[i]``.
+        """
+        E, lo, hi, n = canonical_edges_with_rows(edges)
+        ticket = self._next_ticket
+        self._next_ticket += 1
+        self.stats["submitted"] += 1
+
+        if E.size == 0:
+            self._results[ticket] = np.zeros(0, np.int64)
+            return ticket
+        if E.shape[0] > self.max_edges:
+            raise ValueError(
+                f"graph too large for this engine: m={E.shape[0]} canonical "
+                f"edges exceeds max_edges={self.max_edges}; decompose it "
+                f"directly with core.pkt.truss_pkt, or raise max_edges")
+
+        if self.reorder:
+            perm = degeneracy_order(E, n)
+            r_edges = relabel(E, perm)
+        else:
+            perm = np.arange(n, dtype=np.int64)
+            r_edges = E
+        # key of each *input row* in the relabeled space (handles duplicate
+        # and endpoint-swapped rows: they map onto the same canonical edge)
+        rl, rh = perm[lo], perm[hi]
+        in_keys = edge_keys(np.minimum(rl, rh), np.maximum(rl, rh), n)
+
+        g = build_csr(r_edges, n)
+        # tables never materialize on the host: bucket by their exact
+        # entry counts (O(m) host math)
+        sup_size = support_mod.support_table_size(g)
+        peel_size = support_mod.peel_table_size(g)
+        key = self._size_class(g, sup_size, peel_size)
+        if self.table_mode == "device":
+            support_mod._check_table_size(max(key.sup_pad, key.peel_pad))
+        self._pending.append(_Pending(
+            ticket=ticket, g=g, n=n, in_keys=in_keys, key=key,
+            sup_size=sup_size, peel_size=peel_size))
+        if len(self._pending) >= self.max_pending:
+            self.flush()
+        return ticket
+
+    def submit_many(self, graphs) -> list[int]:
+        """Submit each graph; returns order-aligned tickets."""
+        return [self.submit(e) for e in graphs]
+
+    # ------------------------------------------------------------ results --
+    def result(self, ticket: int) -> np.ndarray:
+        """Trussness for one ticket, flushing pending work if needed.
+
+        Single-read: each ticket's result is released when collected; a
+        second read, or an unknown ticket, raises KeyError.
+        """
+        if ticket not in self._results:
+            if any(p.ticket == ticket for p in self._pending):
+                self.flush()
+            else:
+                raise KeyError(
+                    f"unknown or already-collected ticket {ticket!r}")
+        return self._results.pop(ticket)
+
+    def map(self, graphs) -> list[np.ndarray]:
+        """Submit a list of graphs, flush once, return order-aligned results."""
+        tickets = self.submit_many(graphs)
+        self.flush()
+        return [self.result(t) for t in tickets]
+
+    # ------------------------------------------------------------ internals --
+    def _size_class(self, g: CSRGraph, sup_size: int,
+                    peel_size: int) -> SizeClass:
+        m_pad = max(_MIN_M_PAD, _next_pow2(g.m))
+        sup_pad = _next_pow2(max(1, sup_size))
+        peel_pad = _next_pow2(max(1, peel_size))
+        chunk = wedge_common.pow2_chunk(peel_pad, self.chunk)
+        n_chunks = peel_pad // chunk
+        iters = int(np.ceil(np.log2(2 * m_pad + 1))) + 1
+        sup_chunk = wedge_common.pow2_chunk(sup_pad, self.chunk)
+        n_pad = _next_pow2(g.n + 1) if self.table_mode == "device" else 0
+        return SizeClass(m_pad, sup_pad, peel_pad, chunk, n_chunks, iters,
+                         sup_chunk, sup_pad // sup_chunk, n_pad)
+
+    def discard(self, ticket: int) -> None:
+        """Drop a ticket without computing or collecting it (scheduler hook).
+
+        Unknown tickets are ignored; removes the pending submission or the
+        materialized result.
+        """
+        self._pending = [p for p in self._pending if p.ticket != ticket]
+        self._results.pop(ticket, None)
+
+    def bucket_of(self, ticket: int) -> SizeClass | None:
+        """Size-class key of a still-pending ticket, else ``None``."""
+        for p in self._pending:
+            if p.ticket == ticket:
+                return p.key
+        return None
+
+    @staticmethod
+    def _unions(group: list[_Pending]) -> list[list[_Pending]]:
+        """Split a bucket into runs whose union tables fit the int32 layout.
+
+        A union's tables hold the sum of its graphs' rows, padded to a power
+        of two; each run stays within ``support._MAX_TABLE`` after padding.
+        """
+        runs: list[list[_Pending]] = [[]]
+        sup = peel = 0
+        for p in group:
+            sup2, peel2 = sup + p.sup_size, peel + p.peel_size
+            if runs[-1] and _next_pow2(max(sup2, peel2, 1)) > \
+                    support_mod._MAX_TABLE:
+                runs.append([])
+                sup2, peel2 = p.sup_size, p.peel_size
+            runs[-1].append(p)
+            sup, peel = sup2, peel2
+        return runs
+
+    def _dispatch(self, group: list[_Pending], *, mode: str,
+                  support_mode: str) -> list[np.ndarray]:
+        """Decompose one bucket's graphs as disjoint unions → per-graph
+        trussness in ``g.El`` row order."""
+        out = []
+        for run in self._unions(group):
+            op = disjoint_union([p.g for p in run])
+            res = pkt(op.g, chunk=self.chunk, mode=mode,
+                      support_mode=support_mode, table_mode=self.table_mode,
+                      device=self.device)
+            for i in range(len(run)):
+                out.append(res.trussness[op.edge_off[i]:op.edge_off[i + 1]])
+        return out
+
+    def flush(self, only=None, *, mode: str | None = None,
+              support_mode: str | None = None) -> None:
+        """Decompose pending graphs, bucket by bucket.
+
+        Args:
+            only: optional iterable of :class:`SizeClass` keys — flush only
+                the pending submissions in those buckets.  ``None`` flushes
+                everything.
+            mode: per-call peel-executor override (``None``: the engine's
+                configured mode); results are bitwise identical across
+                modes.
+            support_mode: per-call support-executor override, same contract.
+
+        Ordering contract: each bucket's results are materialized (and its
+        submissions removed from the pending queue) only after its dispatch
+        succeeds, in submission order within the bucket.  If a dispatch
+        raises, that bucket's submissions *and every bucket not yet
+        dispatched* remain pending — their tickets stay redeemable by a
+        later ``flush``/``result``.
+        """
+        eff_mode = self.mode if mode is None else mode
+        eff_support = self.support_mode if support_mode is None \
+            else support_mode
+        if eff_mode not in PEEL_MODES:
+            raise ValueError(
+                f"mode must be one of {PEEL_MODES}, got {eff_mode!r}")
+        if eff_support not in support_mod.SUPPORT_MODES:
+            raise ValueError(
+                f"support_mode must be one of {support_mod.SUPPORT_MODES}, "
+                f"got {eff_support!r}")
+        if not self._pending:
+            return
+        by_key: dict[SizeClass, list[_Pending]] = {}
+        keys = None if only is None else set(only)
+        for p in self._pending:
+            if keys is None or p.key in keys:
+                by_key.setdefault(p.key, []).append(p)
+        if not by_key:
+            return
+
+        for key, group in by_key.items():
+            warm = key in self.stats["buckets"]
+            t0 = time.perf_counter()
+            with count_launches() as counted:
+                truss_rows = self._dispatch(group, mode=eff_mode,
+                                            support_mode=eff_support)
+            launches = self.stats["bucket_launches"].setdefault(
+                key, {"support": 0, "peel": 0, "plain": 0})
+            for k, n in counted.items():
+                launches[k] += n
+            for p, t in zip(group, truss_rows):
+                self._results[p.ticket] = align_to_input(
+                    t.astype(np.int64), p.g, None, p.n, keys=p.in_keys)
+            # only now is the bucket done: drop its submissions from the
+            # pending queue (a dispatch failure above leaves them — and
+            # every bucket after them — pending and retryable)
+            done = {p.ticket for p in group}
+            self._pending = [p for p in self._pending
+                             if p.ticket not in done]
+            dt = time.perf_counter() - t0
+            self.stats["batches"] += 1
+            self.stats["buckets"].add(key)
+            self.stats["graphs_done"] += len(group)
+            self.stats["graph_seconds"] += dt
+            if warm:
+                self.stats["warm_seconds"] += dt
+                self.stats["warm_graphs"] += len(group)
+        self.stats["flushes"] += 1
+
+    def flush_host(self, only=None) -> None:
+        """Host-numpy flush: resolves the selected pending submissions with
+        the pure-numpy reference decomposition (``core.ref.truss_numpy``),
+        no device work at all.  Results are bitwise identical to
+        :meth:`flush`; the same exception-safety contract applies.
+
+        Args:
+            only: optional iterable of :class:`SizeClass` keys, as in
+                :meth:`flush`.
+        """
+        if not self._pending:
+            return
+        keys = None if only is None else set(only)
+        group = [p for p in self._pending
+                 if keys is None or p.key in keys]
+        if not group:
+            return
+        t0 = time.perf_counter()
+        out = [align_to_input(truss_numpy(p.g.El), p.g, None, p.n,
+                              keys=p.in_keys) for p in group]
+        # commit only after every graph decomposed (exception safety)
+        for p, truss in zip(group, out):
+            self._results[p.ticket] = truss
+        done = {p.ticket for p in group}
+        self._pending = [p for p in self._pending if p.ticket not in done]
+        self.stats["flushes"] += 1
+        self.stats["graphs_done"] += len(group)
+        self.stats["graph_seconds"] += time.perf_counter() - t0
+
+    @property
+    def throughput(self) -> float:
+        """Graphs decomposed per second of engine compute.
+
+        Based on warm dispatches only (buckets dispatched before); falls
+        back to the all-in rate until any bucket has gone warm.
+        """
+        if self.stats["warm_seconds"] > 0:
+            return self.stats["warm_graphs"] / self.stats["warm_seconds"]
+        secs = self.stats["graph_seconds"]
+        return self.stats["graphs_done"] / secs if secs > 0 else 0.0
+
+
+def truss_batched(graphs, *, mode: str = "kernel",
+                  support_mode: str = "kernel", table_mode: str = "device",
+                  chunk: int | None = None, reorder: bool = True,
+                  device="cuda") -> list[np.ndarray]:
+    """One-shot convenience: decompose a list of edge arrays, order-aligned."""
+    graphs = list(graphs)
+    eng = TrussEngine(mode=mode, support_mode=support_mode,
+                      table_mode=table_mode, chunk=chunk, reorder=reorder,
+                      max_pending=len(graphs) or 1, device=device)
+    return eng.map(graphs)

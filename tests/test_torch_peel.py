@@ -1,0 +1,187 @@
+"""Port parity: K2's plain version vs the Pallas peel kernel, and edge cases.
+
+States are taken mid-run from the JAX reference's own peel (its compaction
+early exit stops the level loop at a level boundary), then fed with the
+same numpy values to ``repro.kernels.peel.peel_decrement_fold`` in
+interpret mode and to ``repro_torch.kernels.peel.peel_decrement_fold_ref``.
+Comparisons are exact on ``[:m]``.
+"""
+
+import importlib
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+import repro.core.support as ref_support
+from repro.core.ref import truss_numpy
+from repro.graphs.csr import build_csr as ref_build
+from repro.graphs.gen import barabasi_albert_edges, rmat_edges
+from repro.kernels.peel import peel_decrement_fold as ref_fold
+
+from repro_torch.graphs.csr import build_csr as port_build
+from repro_torch.kernels import peel as port_kernel
+
+# ``repro.core`` re-exports the ``pkt`` function, which shadows the module
+ref_pkt = importlib.import_module("repro.core.pkt")
+port_pkt = importlib.import_module("repro_torch.core.pkt")
+
+SENT = 1 << 30
+
+
+def _er(n, p, seed):
+    rng = np.random.default_rng(seed)
+    src, dst = np.nonzero(np.triu(rng.random((n, n)) < p, 1))
+    return np.stack([src, dst], axis=1).astype(np.int64)
+
+
+def _reference_states(E, chunk):
+    """(tabs, chunk, n_chunks, g, [(S_ext, processed)]) at level boundaries
+    of the reference peel: the start, and after ~1/4, 1/2, 3/4 of the edges
+    have retired."""
+    g = ref_build(E)
+    m = g.m
+    tabs, chunk, n_chunks = ref_pkt.prepare_peel(
+        ref_support.build_peel_table(g), m, chunk)
+    S0 = ref_support.compute_support(g)
+    iters = ref_support._search_iters(g)
+    states = []
+    for frac in (1.0, 0.75, 0.5, 0.25):
+        S_ext0 = jnp.asarray(np.append(S0, SENT).astype(np.int32))
+        proc0 = jnp.asarray(np.append(np.zeros(m, bool), True))
+        S_ext, proc, _, _ = ref_pkt._peel_segment_jit(
+            jnp.asarray(g.N), jnp.asarray(g.Eid), S_ext0, proc0,
+            jnp.int32(int(frac * m)), None, tabs, m=m, chunk=chunk,
+            n_chunks=n_chunks, iters=iters, mode="chunked", interpret=True)
+        states.append((np.asarray(S_ext), np.asarray(proc)))
+    return g, tabs, chunk, n_chunks, iters, states
+
+
+def _frontier(S_ext, proc, m):
+    alive = np.where(proc, SENT, S_ext)
+    l = int(alive.min())
+    curr = ~proc & (S_ext == l)
+    curr[m] = False
+    return l, curr
+
+
+def _both(g, tabs, chunk, n_chunks, iters, S_ext, proc, curr, l, active,
+          pinned):
+    m = g.m
+    want = ref_fold(
+        jnp.asarray(active.astype(np.int32)), jnp.full((1,), l, jnp.int32),
+        tabs.e1, tabs.cand_slot, tabs.lo, tabs.hi, jnp.asarray(g.N),
+        jnp.asarray(g.Eid), jnp.asarray(S_ext),
+        jnp.asarray(proc.astype(np.int32)), jnp.asarray(curr.astype(np.int32)),
+        jnp.asarray((np.zeros(m + 1, bool) if pinned is None
+                     else pinned).astype(np.int32)),
+        chunk=chunk, n_chunks=n_chunks, iters=iters, m=m, interpret=True)
+    t = torch.tensor
+    got = port_kernel.peel_decrement_fold(
+        t(active), t(np.array([l], np.int32)), t(np.asarray(tabs.e1)),
+        t(np.asarray(tabs.cand_slot)), t(np.asarray(tabs.lo)),
+        t(np.asarray(tabs.hi)), t(g.N), t(g.Eid), t(S_ext), t(proc),
+        t(curr), None if pinned is None else t(pinned), chunk=chunk,
+        n_chunks=n_chunks, iters=iters, m=m)
+    assert got.dtype == torch.int32 and got.shape == (m + 1,)
+    assert np.array_equal(got.numpy()[:m], np.asarray(want)[:m])
+    assert int(got[m]) == 0
+    return got.numpy()
+
+
+CASES = {
+    "er": (_er(30, 0.3, 7), 16),
+    "rmat": (rmat_edges(6, edge_factor=5, seed=9), 64),
+    "ba": (barabasi_albert_edges(40, 4, seed=2), 8),
+}
+
+
+@pytest.mark.parametrize("name", sorted(CASES))
+def test_plain_k2_matches_pallas_on_reference_states(name):
+    E, chunk = CASES[name]
+    g, tabs, chunk, n_chunks, iters, states = _reference_states(E, chunk)
+    m = g.m
+    rng = np.random.default_rng(len(name))
+    checked = 0
+    for S_ext, proc in states:
+        if proc[:m].all():
+            continue
+        l, curr = _frontier(S_ext, proc, m)
+        active = np.asarray(ref_pkt._active_chunk_mask(
+            jnp.asarray(curr), tabs, m, n_chunks))
+        pinned = np.append(~proc[:m] & (rng.random(m) < 0.3), False)
+        for act, pin in ((active, None), (active, pinned),
+                         (rng.random(n_chunks) < 0.5, None)):
+            dec = _both(g, tabs, chunk, n_chunks, iters, S_ext, proc, curr,
+                        l, act, pin)
+            checked += 1
+        # the next sub-level of the same level, from the reference update
+        upd = ~proc & ~curr & (dec > 0)
+        S2 = np.where(upd, np.maximum(S_ext - dec, l), S_ext).astype(np.int32)
+        proc2 = proc | curr
+        curr2 = ~proc2 & (S2 == l)
+        curr2[m] = False
+        if curr2.any():
+            act2 = np.asarray(ref_pkt._active_chunk_mask(
+                jnp.asarray(curr2), tabs, m, n_chunks))
+            _both(g, tabs, chunk, n_chunks, iters, S2, proc2, curr2, l, act2,
+                  None)
+            checked += 1
+    assert checked >= 6
+
+
+def test_plain_k2_counts_plain_calls_only():
+    E, chunk = CASES["er"]
+    g, tabs, chunk, n_chunks, iters, states = _reference_states(E, chunk)
+    S_ext, proc = states[0]
+    l, curr = _frontier(S_ext, proc, g.m)
+    before = port_kernel.COUNTS.as_dict()
+    _both(g, tabs, chunk, n_chunks, iters, S_ext, proc, curr, l,
+          np.ones(n_chunks, bool), None)
+    after = port_kernel.COUNTS.as_dict()
+    assert after["plain"] == before["plain"] + 1
+    assert after["kernel"] == before["kernel"]
+
+
+def _star(k):
+    return np.stack([np.zeros(k, np.int64), np.arange(1, k + 1)], axis=1)
+
+
+@pytest.mark.parametrize("mode", port_pkt.PEEL_MODES)
+def test_empty_graph(mode):
+    g = port_build(np.zeros((0, 2), np.int64))
+    res = port_pkt.pkt(g, mode=mode, device="cpu")
+    assert res.trussness.shape == (0,) and res.support.shape == (0,)
+    assert (res.levels, res.sublevels, res.compactions) == (0, 0, 0)
+    tabs, chunk, n_chunks = port_pkt.prepare_peel(
+        port_pkt.support_mod.build_peel_table(g), g.m, 1 << 14, device="cpu")
+    assert (chunk, n_chunks) == (1, 1)
+    assert tabs.e1.tolist() == [0] and tabs.hi.tolist() == [0]
+
+
+@pytest.mark.parametrize("mode", port_pkt.PEEL_MODES)
+def test_triangle_free_graphs(mode):
+    for edges in (_star(5), np.array([[0, 1], [1, 2], [2, 3], [3, 4]],
+                                     np.int64)):
+        ref = ref_pkt.pkt(ref_build(edges))
+        res = port_pkt.pkt(port_build(edges), mode=mode, device="cpu")
+        assert (res.trussness == 2).all() and (res.support == 0).all()
+        assert (res.levels, res.sublevels) == (ref.levels, ref.sublevels)
+
+
+@pytest.mark.parametrize("edges", [
+    np.array([[0, 1]], np.int64),                     # m == 1
+    np.array([[0, 1], [1, 2]], np.int64),             # m == 2, no triangle
+    np.array([[0, 1], [0, 2], [1, 2]], np.int64),     # smallest triangle
+])
+@pytest.mark.parametrize("chunk", [1, 3, 1 << 20])
+def test_tiny_graph_huge_chunk(edges, chunk):
+    """chunk >> table size must clamp, not produce n_chunks == 0."""
+    want = truss_numpy(port_build(edges).El)
+    for mode in port_pkt.PEEL_MODES:
+        for table_mode in ("numpy", "device"):
+            got = port_pkt.pkt(port_build(edges), mode=mode, chunk=chunk,
+                               table_mode=table_mode, device="cpu")
+            assert np.array_equal(got.trussness, want), (mode, chunk)

@@ -1,0 +1,145 @@
+"""Port parity: ``repro_torch`` PKT vs the JAX reference, bitwise.
+
+Every peel executor × support executor × table mode × compaction setting
+of the port, on the CPU, must equal ``repro.core.pkt.pkt`` (chunked / jnp) in
+trussness, initial support, levels, sub-levels and compactions.
+"""
+
+import functools
+import importlib
+
+import numpy as np
+import pytest
+
+from repro.core.ref import truss_numpy
+from repro.graphs.csr import build_csr as ref_build
+from repro.graphs.gen import barabasi_albert_edges, rmat_edges
+
+from repro_torch.graphs.csr import build_csr as port_build
+
+# ``repro.core`` re-exports the ``pkt`` function, which shadows the module
+ref_pkt = importlib.import_module("repro.core.pkt")
+port_pkt = importlib.import_module("repro_torch.core.pkt")
+
+
+def _er(n, p, seed):
+    rng = np.random.default_rng(seed)
+    src, dst = np.nonzero(np.triu(rng.random((n, n)) < p, 1))
+    return np.stack([src, dst], axis=1).astype(np.int64)
+
+
+GRAPHS = {
+    "er": _er(22, 0.35, 1),
+    "rmat": rmat_edges(6, edge_factor=5, seed=2),
+    "ba": barabasi_albert_edges(30, 3, seed=3),
+}
+COMPACTION = {
+    "off": dict(compact_frac=None),
+    "aggressive": dict(compact_frac=0.99, compact_min=0),
+}
+
+
+@functools.lru_cache(maxsize=None)
+def _reference(name, compaction):
+    return ref_pkt.pkt(ref_build(GRAPHS[name]), mode="chunked",
+                       support_mode="jnp", chunk=16, **COMPACTION[compaction])
+
+
+def _assert_same(got, want):
+    assert got.trussness.dtype == np.int32 and got.support.dtype == np.int32
+    assert np.array_equal(got.trussness, want.trussness)
+    assert np.array_equal(got.support, want.support)
+    assert (got.levels, got.sublevels, got.compactions) == \
+        (want.levels, want.sublevels, want.compactions)
+
+
+@pytest.mark.parametrize("name", sorted(GRAPHS))
+@pytest.mark.parametrize("compaction", sorted(COMPACTION))
+@pytest.mark.parametrize("mode", ["chunked", "dense", "kernel"])
+def test_pkt_matrix_matches_reference(name, compaction, mode):
+    want = _reference(name, compaction)
+    if compaction == "aggressive":
+        assert want.compactions > 0  # the case really compacts
+    for support_mode in ("torch", "kernel"):
+        for table_mode in ("numpy", "device"):
+            got = port_pkt.pkt(port_build(GRAPHS[name]), mode=mode,
+                               support_mode=support_mode,
+                               table_mode=table_mode, chunk=16,
+                               **COMPACTION[compaction], device="cpu")
+            _assert_same(got, want)
+    assert np.array_equal(want.trussness,
+                          truss_numpy(ref_build(GRAPHS[name]).El))
+
+
+def test_pkt_matches_reference_pallas_executors():
+    """One small case against the reference's Pallas executors (interpret)."""
+    E = _er(14, 0.45, 4)
+    want = ref_pkt.pkt(ref_build(E), mode="pallas", support_mode="pallas",
+                       interpret=True)
+    got = port_pkt.pkt(port_build(E), device="cpu")
+    _assert_same(got, want)
+
+
+def test_pkt_default_chunk_and_phase_timings():
+    E = GRAPHS["rmat"]
+    want = ref_pkt.pkt(ref_build(E))
+    got = port_pkt.pkt(port_build(E), phase_timings=True, device="cpu")
+    _assert_same(got, want)
+    assert set(got.phases) >= {"tables", "support", "peel"}
+    assert all(v >= 0.0 for v in got.phases.values())
+
+
+def test_truss_pkt_swapped_and_duplicate_rows():
+    E = GRAPHS["er"]
+    rng = np.random.default_rng(5)
+    rows = np.concatenate([E, E[:7, ::-1], E[3:9]])
+    rows = rows[rng.permutation(rows.shape[0])]
+    for reorder in (True, False):
+        want = ref_pkt.truss_pkt(rows, reorder=reorder)
+        got = port_pkt.truss_pkt(rows, reorder=reorder, device="cpu")
+        assert got.dtype == np.int64
+        assert np.array_equal(got, want), reorder
+    assert port_pkt.truss_pkt(np.zeros((0, 2), np.int64),
+                              device="cpu").shape == (0,)
+    with pytest.raises(ValueError, match="self-loops"):
+        port_pkt.truss_pkt(np.array([[1, 1]]), device="cpu")
+
+
+@pytest.mark.parametrize("mode", ["chunked", "kernel"])
+def test_peel_live_subset_with_pinned(mode):
+    """A masked re-peel of an edge subset with schedule (pinned) edges, as
+    the incremental layer drives it, equals the reference's."""
+    E = GRAPHS["ba"]
+    g = ref_build(E)
+    S0 = ref_pkt.pkt(g).support
+    rng = np.random.default_rng(6)
+    live = np.sort(rng.choice(g.m, size=g.m // 2, replace=False))
+    pinned = rng.random(live.shape[0]) < 0.25
+    for kwargs in (dict(), dict(compact_frac=0.99, compact_min=0)):
+        want = ref_pkt.peel_live_subset(g.El, live, S0[live], pinned,
+                                        mode="chunked", **kwargs)
+        got = port_pkt.peel_live_subset(g.El, live, S0[live], pinned,
+                                        mode=mode, device="cpu", **kwargs)
+        assert np.array_equal(got, want), kwargs
+    with pytest.raises(ValueError, match="strictly increasing"):
+        port_pkt.peel_live_subset(g.El, live[::-1], S0[live], device="cpu")
+    assert port_pkt.peel_live_subset(g.El, live[:0], S0[:0],
+                                     device="cpu").shape == (0,)
+
+
+def test_align_to_input_rejects_missing_edges():
+    g = port_build(GRAPHS["er"])
+    with pytest.raises(ValueError, match="not present"):
+        port_pkt.align_to_input(np.zeros(g.m), g, np.array([[0, 21]]), 22,
+                                keys=np.array([10 ** 9]))
+
+
+def test_invalid_modes_rejected():
+    g = port_build(GRAPHS["er"])
+    for kwargs in (dict(mode="pallas"), dict(support_mode="jnp"),
+                   dict(table_mode="disk")):
+        with pytest.raises(ValueError, match="mode"):
+            port_pkt.pkt(g, device="cpu", **kwargs)
+    # the alias wins over mode, as in the reference
+    got = port_pkt.pkt(g, mode="bogus", peel_mode="dense", device="cpu")
+    _assert_same(got, ref_pkt.pkt(ref_build(GRAPHS["er"])))
