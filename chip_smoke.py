@@ -18,7 +18,21 @@ seconds:
    executors; the two must agree bitwise;
 5. small-graph oracle: ``truss_pkt`` on the card vs ``truss_numpy``;
 6. engine: a seeded mix of 64 submissions through one ``TrussEngine``
-   flush, each result equal to ``truss_pkt`` of the same graph.
+   flush, each result equal to ``truss_pkt`` of the same graph;
+7. K3 check: the intersect kernel against its plain version, bitwise on
+   all three outputs — a seeded sweep over the reference tests' shapes
+   (int32 and int16, sorted, unsorted and duplicate rows), then every
+   non-empty degree-class bucket of the scale-17 graph, with CUDA-event
+   times beside the bound;
+8. support kernel path: ``compute_support_kernel`` at scale 17, launch
+   counts reset just before and read just after, equal to K1's support;
+   then once more under ``torch.profiler``;
+9. engines: ``truss_trilist`` (once more under ``torch.profiler``),
+   ``kcore_park`` and ``compute_support_ros`` at scale 17 against the main
+   path and the host oracles, and ``truss_wc`` / ``truss_ros`` on the
+   small-graph oracle suite;
+10. cli: ``repro_torch.launch.truss.main`` with ``--verify`` on
+    ``rmat-small`` for each of its four engines.
 
 Any mismatch or exception exits non-zero; no phase catches its own failure.
 The line before the last holds the per-kernel summary, and the last line is
@@ -227,6 +241,88 @@ def check_k2(g, dev, S0, mods) -> list:
     return cases
 
 
+#: the reference tests' K3 shapes (``tests/test_kernels.py``) and row blocks
+K3_SWEEP = ((1, 8, 8), (5, 8, 32), (17, 16, 16), (64, 32, 8), (33, 64, 128),
+            (128, 128, 128), (3, 256, 64), (2, 256, 256))
+K3_BLOCK_ROWS = (4, 64)
+
+
+def k3_rows(rng, E, D, pad, dtype, *, ordered: bool):
+    """(E, D) id rows: sorted distinct ids then ``pad`` (``ordered``), or
+    ids drawn with repeats from a small range, shuffled with pads."""
+    if ordered:
+        out = np.full((E, D), pad, dtype)
+        for i in range(E):
+            vals = np.sort(rng.choice(500, size=int(rng.integers(0, D + 1)),
+                                      replace=False))
+            out[i, :vals.size] = vals
+        return out
+    out = rng.integers(0, 24, size=(E, D)).astype(dtype)
+    out[rng.random((E, D)) < 0.2] = pad
+    return out
+
+
+def k3_compare(kint, a, b, block_rows) -> int:
+    """K3 vs its plain version on one input; raises on any difference."""
+    got = kint.intersect_blocked(a, b, block_rows=block_rows)
+    want = kint.intersect_ref(a, b)
+    torch.cuda.synchronize()
+    err = max(max_abs_err(g, w) for g, w in zip(got, want))
+    if err != 0:
+        raise AssertionError(f"K3 disagrees with its plain version on "
+                             f"{tuple(a.shape)} x {tuple(b.shape)} "
+                             f"{a.dtype}: {err}")
+    return err
+
+
+def check_k3_sweep(dev, kint) -> dict:
+    """K3 on the reference tests' shapes: int32 and int16, block rows 4 and
+    64, sorted rows and unsorted rows with duplicates."""
+    rng = np.random.default_rng(SEED)
+    cases = 0
+    for E, DA, DB in K3_SWEEP:
+        for dtype in (np.int32, np.int16):
+            for ordered in (True, False):
+                a = torch.tensor(k3_rows(rng, E, DA, -1, dtype,
+                                         ordered=ordered), device=dev)
+                b = torch.tensor(k3_rows(rng, E, DB, -2, dtype,
+                                         ordered=ordered), device=dev)
+                for block_rows in K3_BLOCK_ROWS:
+                    k3_compare(kint, a, b, block_rows)
+                    cases += 1
+    return dict(cases=cases, shapes=len(K3_SWEEP), max_abs_err=0)
+
+
+def check_k3_buckets(g, dev, kint, ops) -> list:
+    """K3 on every non-empty degree-class bucket of ``g``, built as
+    ``compute_support_kernel`` builds it."""
+    arrays = g.device_arrays(dev)
+    buckets, _ = ops.degree_buckets(g)
+    rows = []
+    for D, ids, u_start, u_len, v_start, v_len in buckets:
+        up = [torch.tensor(x, device=dev)
+              for x in (u_start, u_len, v_start, v_len)]
+        ra, _, rb, _ = ops.bucket_rows(arrays["N"], arrays["Eid"], *up, D)
+        del up
+        block_rows = ops._block_rows_for(D)
+        err = k3_compare(kint, ra, rb, block_rows)
+        ms = cuda_ms(lambda: kint.intersect_blocked(
+            ra, rb, block_rows=block_rows), 5)
+        plain_ms = cuda_ms(lambda: kint.intersect_ref(ra, rb), 1)
+        E = int(ids.size)
+        # a and b read once, count, hit_a and hit_b written once; one
+        # compare per (a slot, b slot) pair
+        nbytes = 4 * E * 2 * D + 4 * E + 4 * E * 2 * D
+        ops_n = E * D * D
+        b_ms, b_by = bound_ms(nbytes, ops_n)
+        rows.append(dict(D=D, E=E, block_rows=block_rows, max_abs_err=err,
+                         ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                         bound_by=b_by, bytes=nbytes, ops=ops_n))
+        del ra, rb
+        torch.cuda.empty_cache()
+    return rows
+
+
 def profile_run(fn) -> dict:
     """Run ``fn()`` once under ``torch.profiler``; device time by kernel.
 
@@ -270,12 +366,21 @@ def main() -> int:
     # the module of the same name: import the modules by name
     pkt_mod = importlib.import_module("repro_torch.core.pkt")
     sup = importlib.import_module("repro_torch.core.support")
+    from repro_torch.core.kcore import kcore_numpy, kcore_park
     from repro_torch.core.ref import truss_numpy
+    from repro_torch.core.ros import truss_ros
+    from repro_torch.core.triangle_list import (enumerate_triangles,
+                                                truss_trilist)
+    from repro_torch.core.wc import truss_wc
     from repro_torch.graphs import datasets, gen
+    from repro_torch.graphs.csr import build_csr
     from repro_torch.kernels import cuda_build
+    from repro_torch.kernels import intersect as kint
+    from repro_torch.kernels import ops as kops
     from repro_torch.kernels import peel as kpeel
     from repro_torch.kernels import support as ksupport
     from repro_torch.kernels import wedge_common as wc
+    from repro_torch.launch import truss as cli
     from repro_torch.serve.truss_engine import TrussEngine
 
     mods = dict(pkt=pkt_mod, support=sup, kpeel=kpeel, ksupport=ksupport,
@@ -339,10 +444,12 @@ def main() -> int:
     t0 = time.perf_counter()
     ksupport.COUNTS.reset()
     kpeel.COUNTS.reset()
+    kint.COUNTS.reset()
     res = pkt_mod.pkt(g, phase_timings=True, device=dev)
     truss = pkt_mod.align_to_input(res.trussness, g, None, n, keys=row_keys)
     counts = dict(support=ksupport.COUNTS.as_dict(),
-                  peel=kpeel.COUNTS.as_dict())
+                  peel=kpeel.COUNTS.as_dict(),
+                  intersect=kint.COUNTS.as_dict())
     t_kernel = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated()
     if counts["support"]["kernel"] < 1 or counts["peel"]["kernel"] < 1:
@@ -436,6 +543,132 @@ def main() -> int:
          bucket_launches=per_bucket, generate_seconds=t_fleet,
          seconds=time.perf_counter() - t0)
 
+    # ---- 7. K3 check ----------------------------------------------------------
+    # the main path's tables are gone with its results; free the cache
+    # before the D = 256 bucket's rows, masks and gather index (about 7 GB)
+    del fleet, eng
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    k3_sweep = check_k3_sweep(dev, kint)
+    emit("kernel_check_k3_sweep", **k3_sweep,
+         seconds=time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    k3_buckets = check_k3_buckets(g, dev, kint, kops)
+    for row in k3_buckets:
+        emit("kernel_check_k3", **row)
+    emit("kernel_check_k3_buckets", buckets=len(k3_buckets),
+         row_slots=sum(r["E"] * r["D"] for r in k3_buckets),
+         ms=sum(r["ms"] for r in k3_buckets),
+         bound_ms=sum(r["bound_ms"] for r in k3_buckets),
+         plain_ms=sum(r["plain_ms"] for r in k3_buckets),
+         seconds=time.perf_counter() - t0)
+
+    # ---- 8. support kernel path ---------------------------------------------
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ksupport.COUNTS.reset()
+    kpeel.COUNTS.reset()
+    kint.COUNTS.reset()
+    S_k3 = kops.compute_support_kernel(g, device=dev)
+    k3_counts = dict(support=ksupport.COUNTS.as_dict(),
+                     peel=kpeel.COUNTS.as_dict(),
+                     intersect=kint.COUNTS.as_dict())
+    t_k3 = time.perf_counter() - t0
+    if not np.array_equal(S_k3, res.support):
+        raise AssertionError("compute_support_kernel differs from K1's "
+                             "support")
+    if k3_counts["intersect"] != {"kernel": len(k3_buckets), "plain": 0}:
+        raise AssertionError(f"support kernel path did not launch K3 once "
+                             f"per bucket: {k3_counts}")
+    _, fb = kops.degree_buckets(g)
+    fb_wedges = int((g.Es[g.El[fb, 1] + 1].astype(np.int64)
+                     - g.Eo[g.El[fb, 1]]).sum())
+    emit("support_kernel_path", m=g.m, buckets=len(k3_buckets),
+         fallback_edges=int(fb.size), fallback_wedges=fb_wedges,
+         seconds=t_k3, launches=k3_counts, equal_to_k1=True)
+    del S_k3
+    torch.cuda.empty_cache()
+    # where its device time goes: one more call, traced (outside the
+    # counted window above)
+    emit("support_kernel_path_profile", **profile_run(
+        lambda: kops.compute_support_kernel(g, device=dev)))
+    torch.cuda.empty_cache()
+
+    # ---- 9. engines ----------------------------------------------------------
+    t_eng = time.perf_counter()
+    t0 = time.perf_counter()
+    tri = enumerate_triangles(g, device=dev)
+    t_enum = time.perf_counter() - t0
+    if tri.shape != (int(res.support.sum()) // 3, 3):
+        raise AssertionError(f"enumerate_triangles: shape {tri.shape}")
+    del tri
+    ksupport.COUNTS.reset()
+    kpeel.COUNTS.reset()
+    kint.COUNTS.reset()
+    t0 = time.perf_counter()
+    t_tri = truss_trilist(g, device=dev)
+    t_trilist = time.perf_counter() - t0
+    tri_counts = dict(support=ksupport.COUNTS.as_dict(),
+                      peel=kpeel.COUNTS.as_dict(),
+                      intersect=kint.COUNTS.as_dict())
+    if not np.array_equal(t_tri, res.trussness):
+        raise AssertionError("truss_trilist differs from the main path")
+    if tri_counts["support"] != {"kernel": 1, "plain": 0}:
+        raise AssertionError(f"truss_trilist did not take K1: {tri_counts}")
+    torch.cuda.empty_cache()
+    trilist_profile = profile_run(lambda: truss_trilist(g, device=dev))
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    core = kcore_park(g, device=dev)
+    t_park = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    core_bz = kcore_numpy(g)
+    t_bz = time.perf_counter() - t0
+    if not np.array_equal(core, core_bz):
+        raise AssertionError("kcore_park differs from kcore_numpy")
+    t0 = time.perf_counter()
+    S_ros = sup.compute_support_ros(g, device=dev)
+    t_ros = time.perf_counter() - t0
+    if not np.array_equal(S_ros, res.support):
+        raise AssertionError("compute_support_ros differs from K1's support")
+    del S_ros
+    torch.cuda.empty_cache()
+    small_eng = {}
+    for name in ("fig1", "karate_like", "cliques-tiny", "rmat-tiny",
+                 "ba-tiny"):
+        gs = build_csr(datasets.named_graph(name))
+        want_t = truss_numpy(gs.El)
+        for eng_name, got_t in (("wc", truss_wc(gs)),
+                                ("ros", truss_ros(gs, device=dev)),
+                                ("trilist", truss_trilist(gs, device=dev))):
+            if not np.array_equal(got_t, want_t):
+                raise AssertionError(f"{name}: truss_{eng_name} differs from "
+                                     f"truss_numpy")
+        if not np.array_equal(kops.compute_support_kernel(gs, device=dev),
+                              sup.compute_support(gs, device=dev)):
+            raise AssertionError(f"{name}: compute_support_kernel differs")
+        if not np.array_equal(kcore_park(gs, device=dev), kcore_numpy(gs)):
+            raise AssertionError(f"{name}: kcore_park differs")
+        small_eng[name] = dict(m=gs.m, max_trussness=int(want_t.max()))
+    emit("engines", m=g.m, triangles=int(res.support.sum()) // 3,
+         max_core=int(core.max()), enumerate_triangles_seconds=t_enum,
+         trilist_seconds=t_trilist, trilist_launches=tri_counts,
+         trilist_profile=trilist_profile,
+         kcore_park_seconds=t_park, kcore_numpy_seconds=t_bz,
+         support_ros_seconds=t_ros, small_graph_oracle=small_eng,
+         seconds=time.perf_counter() - t_eng)
+
+    # ---- 10. cli -------------------------------------------------------------
+    t0 = time.perf_counter()
+    cli_s = {}
+    for engine in cli.ENGINES:
+        t1 = time.perf_counter()
+        # prints its own summary lines; exits non-zero on a mismatch
+        cli.main(["--graph", "rmat-small", "--engine", engine, "--verify"])
+        cli_s[engine] = time.perf_counter() - t1
+    emit("cli", graph="rmat-small", engines=list(cli.ENGINES),
+         seconds_by_engine=cli_s, seconds=time.perf_counter() - t0)
+
     # ---- summary -------------------------------------------------------------
     # the summary line reports the widest K2 launch checked
     k2_first = max(k2_cases, key=lambda c: c["rows_active"])
@@ -456,6 +689,21 @@ def main() -> int:
              plain_ms=k2_first["plain_ms"],
              bound_ms=k2_first["bound_ms"], bound_by=k2_first["bound_by"],
              library_ms=None),
+        # the widest bucket; the all_buckets_* keys sum the six launches of
+        # one compute_support_kernel call
+        dict(name="intersect_blocked", route="cuda",
+             source="src/repro_torch/kernels/csrc/intersect.cu",
+             replaces="src/repro/kernels/intersect.py:65",
+             launches=k3_counts["intersect"]["kernel"],
+             max_abs_err=max([k3_sweep["max_abs_err"]]
+                             + [r["max_abs_err"] for r in k3_buckets]),
+             bucket_D=k3_buckets[-1]["D"], ms=k3_buckets[-1]["ms"],
+             plain_ms=k3_buckets[-1]["plain_ms"],
+             bound_ms=k3_buckets[-1]["bound_ms"],
+             bound_by=k3_buckets[-1]["bound_by"], library_ms=None,
+             all_buckets_ms=sum(r["ms"] for r in k3_buckets),
+             all_buckets_bound_ms=sum(r["bound_ms"] for r in k3_buckets),
+             launches_on_pkt_main_path=main_counts["intersect"]["kernel"]),
     ]
     emit("done", seconds=time.perf_counter() - t_all)
     print(card, flush=True)

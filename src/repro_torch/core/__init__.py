@@ -1,8 +1,10 @@
-"""Core: PKT truss decomposition, its support phase, and the host oracles."""
+"""Core: PKT truss decomposition, its support phase, the paper's baselines
+and the host oracles."""
 
 from repro_torch.core.pkt import pkt, truss_pkt, PKTResult, peel_live_subset
 from repro_torch.core.support import (
     compute_support,
+    compute_support_ros,
     triangle_count,
     build_support_table,
     build_peel_table,
@@ -11,13 +13,18 @@ from repro_torch.core.support import (
     SUPPORT_MODES,
     TABLE_MODES,
 )
+from repro_torch.core.wc import truss_wc
+from repro_torch.core.ros import truss_ros
 from repro_torch.core.ref import truss_numpy
-from repro_torch.core.kcore import kcore_numpy
+from repro_torch.core.triangle_list import truss_trilist, enumerate_triangles
+from repro_torch.core.kcore import kcore_numpy, kcore_park
 
 __all__ = [
     "pkt", "truss_pkt", "PKTResult", "peel_live_subset",
-    "compute_support", "triangle_count",
+    "compute_support", "compute_support_ros", "triangle_count",
     "build_support_table", "build_peel_table",
     "support_table_size", "peel_table_size", "SUPPORT_MODES", "TABLE_MODES",
-    "truss_numpy", "kcore_numpy",
+    "truss_wc", "truss_ros", "truss_numpy",
+    "truss_trilist", "enumerate_triangles",
+    "kcore_numpy", "kcore_park",
 ]

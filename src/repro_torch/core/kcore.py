@@ -1,16 +1,23 @@
-"""k-core decomposition: the Batagelj–Zaversnik bucket peel (host oracle).
+"""k-core decomposition: BZ (host oracle) and ParK-style level-synchronous.
 
 The paper preprocesses every graph with a k-core decomposition and a
 coreness reordering (its Table 2 shows up to 17x triangle-counting speedups
 from the ordering); ``graphs.csr.degeneracy_order`` calls ``kcore_numpy``
-for it.  The level-synchronous device variant (``kcore_park`` in the JAX
-package) is not ported yet.
+for it.  PKT itself is "based on a recently proposed algorithm for k-core
+decomposition" (ParK):
+
+  - ``kcore_numpy``: Batagelj–Zaversnik bucket peeling, O(n + m). Oracle.
+  - ``kcore_park``:  ParK-style level-synchronous peeling in torch ops —
+    the same curr/next frontier pattern PKT uses, over vertices, with the
+    loops on the host (one read per sub-level).
 """
 
 from __future__ import annotations
 
 import numpy as np
+import torch
 
+from repro_torch.device import resolve_device
 from repro_torch.graphs.csr import CSRGraph
 
 
@@ -58,3 +65,42 @@ def kcore_numpy(g: CSRGraph) -> np.ndarray:
                 bin_start[du] += 1
                 core[u] = du - 1
     return np.asarray(core, dtype=np.int32)
+
+
+def kcore_park(g: CSRGraph, *, device="cuda") -> np.ndarray:
+    """ParK-style k-core; returns coreness per vertex (int32).
+
+    Level ``l`` removes, sub-level by sub-level, the frontier ``{v alive :
+    deg[v] <= l}`` at once and subtracts from every vertex the number of
+    its neighbours that just died: an ``index_add_`` of the dead CSR slots
+    (each slot adds its 0 or 1 at its own neighbour, so no address collects
+    the zeros).  The loops run on the host and read ``[#frontier, #alive]``
+    once per sub-level; a level ends with an empty sub-level, as in the JAX
+    package.  ``device`` is "cuda" (the default; raises when no card is
+    present) or "cpu".
+    """
+    device = resolve_device(device)
+    n = g.n
+    if n == 0:
+        return np.zeros(0, np.int32)
+    dev = g.device_arrays(device)
+    N = dev["N"]
+    deg = torch.tensor(g.degrees, device=device)
+    row_of_slot = torch.repeat_interleave(
+        torch.arange(n, dtype=torch.int32, device=device),
+        deg.to(torch.int64), output_size=N.shape[0])
+    core = torch.zeros(n, dtype=deg.dtype, device=device)
+    alive = torch.ones(n, dtype=torch.bool, device=device)
+    l, todo = 0, n
+    while todo > 0:
+        moved = 1
+        while moved > 0:
+            frontier = alive & (deg <= l)
+            core = torch.where(frontier, l, core)
+            alive &= ~frontier
+            dec = torch.zeros(n, dtype=deg.dtype, device=device)
+            dec.index_add_(0, N, frontier[row_of_slot].to(deg.dtype))
+            deg = torch.where(alive, deg - dec, deg)
+            moved, todo = torch.stack([frontier.sum(), alive.sum()]).tolist()
+        l += 1
+    return core.cpu().numpy()

@@ -303,11 +303,25 @@ def _support_torch(N, Eid, e1, cand_slot, lo, hi, iters: int, m: int):
     for start, stop in wedge_common.row_slices(e1.shape[0]):
         c = cand_slot[start:stop]
         hit, safe = probe(N, c, lo[start:stop], hi[start:stop], iters=iters)
-        inc = hit.to(torch.int32)
-        # masked: a miss (or a padding row, anchor m) adds 0 to slot 0
-        S.index_add_(0, torch.where(hit, e1[start:stop], 0), inc)
-        S.index_add_(0, torch.where(hit, Eid[c], 0), inc)
-        S.index_add_(0, torch.where(hit, Eid[safe], 0), inc)
+        # the hits only: a miss (or a padding row, anchor m) adds nothing,
+        # where the JAX package adds its 0 to one slot
+        idx = torch.nonzero(hit)[:, 0]
+        ones = torch.ones(idx.shape[0], dtype=torch.int32, device=N.device)
+        S.index_add_(0, e1[start:stop][idx], ones)
+        S.index_add_(0, Eid[c[idx]], ones)
+        S.index_add_(0, Eid[safe[idx]], ones)
+    return S
+
+
+def _support_ros_torch(N, e1, cand_slot, lo, hi, iters: int, m: int):
+    """The torch-op Ros executor (the JAX package's ``_support_ros_jit``):
+    each hit adds 1 at its anchor only."""
+    S = torch.zeros(m, dtype=torch.int32, device=N.device)
+    for start, stop in wedge_common.row_slices(e1.shape[0]):
+        hit, _ = probe(N, cand_slot[start:stop], lo[start:stop],
+                       hi[start:stop], iters=iters)
+        sel = e1[start:stop][hit]
+        S.index_add_(0, sel, torch.ones_like(sel))
     return S
 
 
@@ -351,6 +365,39 @@ def compute_support(g: CSRGraph, table: WedgeTable | None = None, *,
         e1, cand, lo, hi, dev["N"], dev["Eid"], m=g.m, mode=mode,
         chunk=chunk_eff, n_chunks=n_chunks,
         iters=_search_iters(g, oriented=True))
+    return S.cpu().numpy()
+
+
+# --- Ros (Algorithm 2) support computation: edge-based, unordered -----------
+#
+# For each edge (u,v) the FULL adjacencies are intersected (no orientation),
+# so every triangle is counted once *per edge* (3x total work vs AM4 — the
+# paper's Σ d(v)^2 vs Σ d⁺(v)^2 gap). Kept as the baseline for Table 2/3.
+
+def compute_support_ros(g: CSRGraph, table: WedgeTable | None = None, *,
+                        device="cuda") -> np.ndarray:
+    """Ros-style support: per-edge full intersection (work ∝ Σ d(v)^2).
+
+    Probes the peel table (``build_peel_table``'s rows), built on the device
+    unless a host ``table`` is given, and adds each hit at its anchor edge.
+    ``device`` is "cuda" (the default; raises when no card is present) or
+    "cpu".
+    """
+    device = resolve_device(device)
+    if g.m == 0:
+        return np.zeros(0, np.int32)
+    dev = g.device_arrays(device)
+    if table is None:
+        size = peel_table_size(g)
+        if size == 0:
+            return np.zeros(g.m, np.int32)
+        _check_table_size(size)
+        e1, cand, lo, hi, *_ = _build_peel_table_dev(
+            dev["u"], dev["v"], dev["Es"], g.m, m=g.m, size=size, chunk=size)
+    else:
+        e1, cand, lo, hi = (torch.tensor(a, device=device) for a in
+                            (table.e1, table.cand_slot, table.lo, table.hi))
+    S = _support_ros_torch(dev["N"], e1, cand, lo, hi, _search_iters(g), g.m)
     return S.cpu().numpy()
 
 

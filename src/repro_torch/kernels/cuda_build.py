@@ -26,7 +26,7 @@ import torch
 
 CSRC = pathlib.Path(__file__).with_name("csrc")
 BUILD_DIR = pathlib.Path(__file__).with_name("_build")
-SOURCES = ("support", "peel")
+SOURCES = ("support", "peel", "intersect")
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -46,6 +46,13 @@ _SIGNATURES = {
         "peel_decrement_fold_launch": (
             [_VOID] * 13 + [_LL, _INT, _INT, _INT, _VOID], _INT),
         "peel_error_string": ([_INT], ctypes.c_char_p),
+    },
+    "intersect": {
+        "intersect_i32_launch": ([_VOID] * 5 + [_LL, _INT, _INT, _INT, _VOID],
+                                 _INT),
+        "intersect_i16_launch": ([_VOID] * 5 + [_LL, _INT, _INT, _INT, _VOID],
+                                 _INT),
+        "intersect_error_string": ([_INT], ctypes.c_char_p),
     },
 }
 

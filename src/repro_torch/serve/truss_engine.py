@@ -379,7 +379,7 @@ class TrussEngine:
                 truss_rows = self._dispatch(group, mode=eff_mode,
                                             support_mode=eff_support)
             launches = self.stats["bucket_launches"].setdefault(
-                key, {"support": 0, "peel": 0, "plain": 0})
+                key, dict.fromkeys(counted, 0))
             for k, n in counted.items():
                 launches[k] += n
             for p, t in zip(group, truss_rows):

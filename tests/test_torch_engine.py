@@ -96,14 +96,15 @@ def test_one_bucket_is_one_union_dispatch():
 
 
 def test_count_launches_reads_one_block():
-    """count_launches reports the block's K1/K2 launches and plain calls only:
-    on the CPU, one support fold plus one peel fold per sub-level, all plain."""
+    """count_launches reports the block's K1/K2/K3 launches and plain calls
+    only: on the CPU, one support fold plus one peel fold per sub-level, all
+    plain."""
     E = ring_of_cliques_edges(3, 5)
     truss_pkt(E, device="cpu")   # counted before the block: must not show
     with count_launches() as counted:
         assert counted == {}     # filled only when the block exits
         res = pkt(build_csr(E), device="cpu")
-    assert counted == {"support": 0, "peel": 0,
+    assert counted == {"support": 0, "peel": 0, "intersect": 0,
                        "plain": 1 + res.sublevels}
 
 
