@@ -8,14 +8,17 @@ seconds:
 
 1. environment: ``nvidia-smi`` name and power limit, torch version, device;
 2. build: ``nvcc`` for every kernel source, all started together;
-3. kernel check: K1 (support) and K2 (peel) against their plain versions,
-   bitwise, at the full-size tables — K2 on states from the first
-   sub-level, a middle level and after a compaction, once with ``pinned``;
-   CUDA-event times beside the byte bound;
+3. kernel check: K1 (support), K2 (peel) and the sub-level update against
+   their plain versions and the table-fed torch executors, bitwise, at full
+   size — K1 on the whole graph, K2 and the update on states from the first
+   sub-level, a middle level (once with ``pinned``) and after a compaction;
+   CUDA-event times beside the bounds computed from each call's inputs;
 4. main path: Graph500 R-MAT scale 17 / edge factor 16 / seed 0 through
    ``truss_pkt``'s steps with the default "kernel" executors, launch counts
    reset just before and read just after, then again with the torch
-   executors; the two must agree bitwise;
+   executors; the two must agree bitwise; then one traced run (device time
+   by kernel) and one instrumented run (every K2 and update launch's
+   bound);
 5. small-graph oracle: ``truss_pkt`` on the card vs ``truss_numpy``;
 6. engine: a seeded mix of 64 submissions through one ``TrussEngine``
    flush, each result equal to ``truss_pkt`` of the same graph;
@@ -45,6 +48,7 @@ Run from the repository root; it takes no arguments::
 
 from __future__ import annotations
 
+import functools
 import importlib
 import json
 import pathlib
@@ -117,89 +121,368 @@ def max_abs_err(a, b) -> int:
     return int((a.to(torch.int64) - b.to(torch.int64)).abs().max())
 
 
+def cuda_ms_each(setup, fn, reps: int) -> float:
+    """Mean milliseconds of one ``fn(*setup())`` by CUDA events around each
+    launch alone: for kernels that change their inputs, ``setup`` makes
+    fresh ones outside the timed window."""
+    fn(*setup())  # warm up
+    total = 0.0
+    for _ in range(reps):
+        args = setup()
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn(*args)
+        stop.record()
+        torch.cuda.synchronize()
+        total += start.elapsed_time(stop)
+    return total / reps
+
+
+def graph_ms(fn, restore=None, per_graph: int = 10, reps: int = 5) -> float:
+    """Mean device milliseconds of one ``fn()``, from a CUDA graph of
+    ``per_graph`` calls replayed ``reps`` times between CUDA events.
+
+    The graph runs the launches back to back on the device, without the
+    host time between them that a launch of a few microseconds cannot hide.
+    ``restore`` (when given) runs before each call to reset the inputs that
+    ``fn`` changes; a graph of ``restore`` alone is timed the same way and
+    subtracted.
+    """
+    def timed(body):
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            body()  # warm up outside the capture
+        torch.cuda.current_stream().wait_stream(side)
+        torch.cuda.synchronize()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            for _ in range(per_graph):
+                body()
+        graph.replay()
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(reps):
+            graph.replay()
+        stop.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(stop) / (reps * per_graph)
+
+    if restore is None:
+        return timed(fn)
+
+    def both():
+        restore()
+        fn()
+
+    return timed(both) - timed(restore)
+
+
+def wedge_ops(n_scan, n_probe) -> int:
+    """Compares the wedge intersections need: per edge the fewer of a merge
+    (scan + probe) and a search (scan x ceil(log2(probe + 1)))."""
+    n_scan = n_scan.to(torch.float64)
+    n_probe = n_probe.to(torch.float64)
+    search = n_scan * torch.ceil(torch.log2(n_probe + 1))
+    return int(torch.minimum(n_scan + n_probe, search).sum())
+
+
+def k1_bound(g, dev, mods, n_chunks) -> tuple:
+    """Bytes and operations of the support phase on ``g``: each N+ list
+    (m ids in all), Eid of the hit slots, the endpoints, the CSR offsets
+    and the row offsets read once; S and the partials written once."""
+    tl = mods["trilist"]
+    tri = tl._triangles_dev(g, dev)
+    hit_slots = int(torch.unique(torch.cat([tri[:, 1], tri[:, 2]])).numel())
+    del tri
+    torch.cuda.empty_cache()
+    m, n = g.m, g.n
+    nbytes = (4 * m + 4 * hit_slots + 8 * m + 4 * (2 * n + 1)
+              + 4 * (m + 1) + 4 * (m + 1) + 4 * n_chunks)
+    dplus = g.dplus.astype(np.int64)
+    ops = wedge_ops(torch.from_numpy(dplus[g.El[:, 1]]),
+                    torch.from_numpy(dplus[g.El[:, 0]]))
+    return nbytes, ops, hit_slots
+
+
 def check_k1(g, dev, mods) -> dict:
-    """K1 vs its plain version on the full-size support table."""
+    """K1 vs its plain version, both fed by the CSR, and vs the torch
+    executor over the device-built table, on the full-size graph."""
     wc, sup, ks = mods["wc"], mods["support"], mods["ksupport"]
     size = sup.support_table_size(g)
     size_pad = wc.next_pow2(size)
     chunk = wc.pow2_chunk(size_pad, None, size=size)
     n_chunks = size_pad // chunk
-    iters = sup._search_iters(g, oriented=True)
     arrays = g.device_arrays(dev)
+    args = tuple(arrays[k] for k in ("u", "v", "Es", "Eo", "N", "Eid"))
+    kw = dict(m=g.m, chunk=chunk, n_chunks=n_chunks)
+    S_k, tri_k = ks.support_accumulate(*args, **kw)
+    S_p, tri_p = ks.support_accumulate_ref(*args, **kw)
     e1, cand, lo, hi, _ = sup._build_support_table_dev(
         arrays["u"], arrays["v"], arrays["Es"], arrays["Eo"], g.m, m=g.m,
         size=size_pad)
-    args = (e1, cand, lo, hi, arrays["N"], arrays["Eid"])
-    kw = dict(chunk=chunk, n_chunks=n_chunks, iters=iters, m=g.m)
-    S_k, tri_k = ks.support_accumulate(*args, **kw)
-    S_p, tri_p = ks.support_accumulate_ref(*args, **kw)
+    iters = sup._search_iters(g, oriented=True)
+    S_t = sup._support_torch(arrays["N"], arrays["Eid"], e1, cand, lo, hi,
+                             iters, g.m)
     torch.cuda.synchronize()
-    err = max(max_abs_err(S_k, S_p), max_abs_err(tri_k, tri_p))
+    table_ms = cuda_ms(lambda: sup._support_torch(
+        arrays["N"], arrays["Eid"], e1, cand, lo, hi, iters, g.m), 1)
+    del e1, cand, lo, hi
+    torch.cuda.empty_cache()
+    err = max(max_abs_err(S_k, S_p), max_abs_err(tri_k, tri_p),
+              max_abs_err(S_k[:g.m], S_t))
     if err != 0:
-        raise AssertionError(f"K1 disagrees with its plain version: {err}")
+        raise AssertionError(f"K1 disagrees with its plain version or the "
+                             f"table-fed torch executor: {err}")
     if int(tri_k.sum()) * 3 != int(S_k[:g.m].sum()):
         raise AssertionError("K1 triangle partials do not sum to S.sum()/3")
     ms = cuda_ms(lambda: ks.support_accumulate(*args, **kw), 5)
+    device_ms = graph_ms(lambda: ks.support_accumulate(*args, **kw),
+                         per_graph=2, reps=2)
     plain_ms = cuda_ms(lambda: ks.support_accumulate_ref(*args, **kw), 1)
-    two_m = 2 * g.m
-    nbytes = 16 * size + 8 * two_m + 4 * (g.m + 1) + 4 * n_chunks
-    ops = 3 * search_steps(lo[:size], hi[:size]) + 4 * size
+    nbytes, ops, hit_slots = k1_bound(g, dev, mods, n_chunks)
     b_ms, b_by = bound_ms(nbytes, ops)
-    triangles = int(tri_k.sum())
-    del args, e1, cand, lo, hi
-    return dict(rows=size, rows_padded=size_pad, chunk=chunk, iters=iters,
-                triangles=triangles, max_abs_err=err, ms=ms,
-                plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-                bytes=nbytes, ops=ops, S0=S_k[:g.m].clone())
+    return dict(rows=size, rows_padded=size_pad, chunk=chunk,
+                triangles=int(tri_k.sum()), hit_slots=hit_slots,
+                max_abs_err=err, ms=ms, device_ms=device_ms,
+                plain_ms=plain_ms, table_torch_executor_ms=table_ms, bound_ms=b_ms,
+                bound_by=b_by, bytes=nbytes, ops=ops, S0=S_k[:g.m].clone())
 
 
-def k2_case(label, tabs, chunk, n_chunks, iters, N, Eid, S_ext, processed,
-            m, pinned, mods) -> dict:
-    """K2 vs its plain version at one peel state (first sub-level of the
-    current level)."""
+def k2_call_bound(front, csr, N, Eid, pinned, mods) -> tuple:
+    """Bytes, operations and wedge rows of one decrement fold over the
+    frontier edges ``front``: their ids and endpoints, the CSR offsets and
+    adjacency lists of the endpoints and Eid of the hit slots read once;
+    the state of the hit edges read once and their ``dec`` written once.
+    ``dec`` is written only where a hit lands (the update zeroes it), and
+    the work list is the kernel's own form of the frontier, so neither
+    counts in full."""
+    kp, wc = mods["kpeel"], mods["wc"]
+    s0, n_scan, lo, hi = kp._scan_probe(front, csr.u, csr.v, csr.Es)
+    ends = torch.cumsum(n_scan.long(), 0)
+    iters = max(1, int((hi - lo).max()).bit_length()) if front.numel() else 1
+    slots = []
+    for r0, r1 in wc.row_slices(int(ends[-1]) if front.numel() else 0):
+        rows = torch.arange(r0, r1, device=N.device, dtype=torch.int64)
+        k = torch.searchsorted(ends, rows, right=True)
+        cand = (s0[k] + (rows - (ends[k] - n_scan[k]))).to(torch.int32)
+        hit, safe = wc.probe(N, cand, lo[k], hi[k], iters=iters)
+        slots += [cand[hit], safe[hit].to(torch.int32)]
+    hit_slots = (torch.unique(torch.cat(slots)) if slots
+                 else torch.zeros(0, dtype=torch.int32, device=N.device))
+    hit_edges = int(torch.unique(Eid[hit_slots.long()]).numel())
+    f = front.long()
+    verts = torch.unique(torch.cat([csr.u[f], csr.v[f]])).long()
+    deg = csr.Es[verts + 1] - csr.Es[verts]
+    # S, processed, inCurr (and pinned) read, dec written
+    state = 4 + 1 + 1 + (0 if pinned is None else 1) + 4
+    nbytes = (4 * int(deg.sum()) + 8 * int(verts.numel())
+              + 4 * int(hit_slots.numel()) + state * hit_edges
+              + 12 * int(front.numel()))
+    ops = wedge_ops(n_scan, (hi - lo))
+    return nbytes, ops, int(ends[-1]) if front.numel() else 0
+
+
+def update_bound(m, n_front, n_dec, n_next) -> tuple:
+    """Bytes of one sub-level update.  Only a decremented edge can join the
+    next frontier, so after a fold the update needs ``dec`` read over the
+    m + 1 slots, each frontier edge's id read and its two flags written,
+    each decremented edge's S read and written, its flags read and its dec
+    zeroed; the next frontier's flag and id written.  A level's start
+    (``n_front == 0``, no fold before it) reads S and processed over the
+    m + 1 slots instead of dec."""
+    dense = 4 * (m + 1) if n_front else 5 * (m + 1)
+    return dense + 6 * n_front + 14 * n_dec + 5 * n_next, 0, m + 1
+
+
+class K2Bounds:
+    """Wraps the K2 and update entry points of ``kernels/peel.py`` for one
+    instrumented run: each call's bound is computed from its own inputs
+    (reading them costs host syncs, so the run is not a timed one)."""
+
+    def __init__(self, mods):
+        self.kp = mods["kpeel"]
+        self.mods = mods
+        self.calls = []
+
+    def __enter__(self):
+        kp = self.kp
+        self.fold, self.update = kp.peel_decrement_fold, kp.sublevel_update
+
+        def fold(work_e, work_j, counts, l, u, v, Es, N, Eid, S_ext,
+                 processed, inCurr, pinned=None, *, m, **kw):
+            n = int(counts[0])
+            front = work_e[:n][work_j[:n] == 0]
+            csr = self.mods["pkt"].PeelCSR(u, v, Es, 0)
+            self.calls.append(("fold",) + k2_call_bound(
+                front, csr, N, Eid, pinned, self.mods))
+            return self.fold(work_e, work_j, counts, l, u, v, Es, N, Eid,
+                             S_ext, processed, inCurr, pinned, m=m, **kw)
+
+        def update(*args, m):
+            dec, curr = args[0], args[3]
+            n_dec, n_front = int((dec != 0).sum()), int(curr.sum())
+            self.update(*args, m=m)
+            n_next = int(args[-1][1])
+            self.calls.append(("update",) + update_bound(m, n_front, n_dec,
+                                                         n_next))
+
+        kp.peel_decrement_fold, kp.sublevel_update = fold, update
+        return self
+
+    def __exit__(self, *exc):
+        self.kp.peel_decrement_fold = self.fold
+        self.kp.sublevel_update = self.update
+
+    def summed(self, kind) -> dict:
+        """Calls of ``kind`` and their bounds summed."""
+        rows = [c for c in self.calls if c[0] == kind]
+        b = [bound_ms(nb, ops) for _, nb, ops, _ in rows]
+        return dict(calls=len(rows), bound_ms=sum(t for t, _ in b),
+                    bound_by={by: sum(1 for _, x in b if x == by)
+                              for by in ("bytes", "operations")},
+                    bytes=sum(r[1] for r in rows), ops=sum(r[2] for r in rows))
+
+
+def k2_case(label, st, mods) -> dict:
+    """K2 and the sub-level update against their plain versions and the
+    table-fed torch executor ("chunked") at one peel state, the first
+    sub-level of its level; CUDA-event times beside the bounds."""
     pkt_mod, kp = mods["pkt"], mods["kpeel"]
-    alive = torch.where(processed, pkt_mod._SENTINEL_S, S_ext)
-    l = alive.min().reshape(1)
-    inCurr = ~processed & (S_ext == l)
-    inCurr[m] = False
-    active = pkt_mod._active_chunk_mask(inCurr, tabs, m, n_chunks)
-    args = (active, l, tabs.e1, tabs.cand_slot, tabs.lo, tabs.hi, N, Eid,
-            S_ext, processed, inCurr, pinned)
-    kw = dict(chunk=chunk, n_chunks=n_chunks, iters=iters, m=m)
-    dec_k = kp.peel_decrement_fold(*args, **kw)
-    dec_p = kp.peel_decrement_fold_ref(*args, **kw)
+    csr, tabs = st["csr"], st["tabs"]
+    N, Eid, m, pinned = st["N"], st["Eid"], st["m"], st["pinned"]
+    S_ext, processed = st["S_ext"], st["processed"]
+    dev = S_ext.device
+    zeros = functools.partial(torch.zeros, m + 1, device=dev)
+    l = torch.where(processed, pkt_mod._SENTINEL_S, S_ext).min().reshape(1)
+
+    def work_buffers():
+        return (torch.full((csr.work_cap,), -1, dtype=torch.int32,
+                           device=dev),
+                torch.full((csr.work_cap,), -1, dtype=torch.int32,
+                           device=dev),
+                torch.zeros(4, dtype=torch.int32, device=dev))
+
+    # the level's first frontier, made by the update kernel (level start)
+    inCurr = zeros(dtype=torch.bool)
+    work_e, work_j, counts = work_buffers()
+    kp.sublevel_update(zeros(dtype=torch.int32), S_ext.clone(),
+                       processed.clone(), inCurr, l, csr.u, csr.v, csr.Es,
+                       work_e, work_j, counts, m=m)
+    want = ~processed & (S_ext == l)
+    want[m] = False
+    if not torch.equal(inCurr, want):
+        raise AssertionError(f"update ({label}): level start frontier")
+    fold_args = (l, csr.u, csr.v, csr.Es, N, Eid, S_ext, processed, inCurr,
+                 pinned)
+    dec_k = kp.peel_decrement_fold(work_e, work_j, counts, *fold_args, m=m)
+    dec_p = kp.peel_decrement_fold_ref(work_e, work_j, counts, *fold_args,
+                                       m=m)
+    # the same frontier in a shuffled order, listed by torch ops
+    front = torch.nonzero(inCurr)[:, 0].to(torch.int32)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    shuffled = front[torch.randperm(front.numel(), generator=gen,
+                                    device=dev)]
+    sh_e, sh_j, sh_counts = work_buffers()
+    kp.frontier_work(shuffled, csr.u, csr.v, csr.Es, sh_e, sh_j, sh_counts)
+    dec_s = kp.peel_decrement_fold(sh_e, sh_j, sh_counts, *fold_args, m=m)
+    dec_t = pkt_mod._decrements(
+        "chunked", N, Eid, S_ext, processed, inCurr, l.reshape(()), tabs,
+        pinned=pinned, m=m, chunk=st["chunk"], n_chunks=st["n_chunks"],
+        iters=st["iters"])
     torch.cuda.synchronize()
-    err = max_abs_err(dec_k, dec_p)
+    err = max(max_abs_err(dec_k, dec_p), max_abs_err(dec_k, dec_s),
+              max_abs_err(dec_k[:m], dec_t[:m]), int(dec_k[m].abs()))
     if err != 0:
-        raise AssertionError(f"K2 ({label}) disagrees with its plain "
-                             f"version: {err}")
-    ms = cuda_ms(lambda: kp.peel_decrement_fold(*args, **kw), 5)
-    plain_ms = cuda_ms(lambda: kp.peel_decrement_fold_ref(*args, **kw), 1)
-    # bytes this call must move: the anchor of every row of an active
-    # chunk, the rest of the frontier rows, the adjacency, the state, dec
-    in_active = active.repeat_interleave(chunk)
-    rows_active = int(active.sum()) * chunk
-    front = in_active & inCurr[tabs.e1]
-    del in_active
-    rows_front = int(front.sum())
-    state = 4 + 1 + 1 + (0 if pinned is None else 1)
-    nbytes = (4 * rows_active + 12 * rows_front + 8 * N.shape[0]
-              + state * (m + 1) + n_chunks + 4 * (m + 1))
-    ops = 3 * search_steps(tabs.lo[front], tabs.hi[front]) + 8 * rows_front
+        raise AssertionError(f"K2 ({label}) disagrees with its plain version "
+                             f"or the chunked torch executor: {err}")
+    n_items = int(counts[0])
+
+    def fold_setup():
+        return (zeros(dtype=torch.int32),)
+
+    def fold(dec):
+        kp.peel_decrement_fold(work_e, work_j, counts, *fold_args, m=m,
+                               dec=dec)
+
+    dec_acc = zeros(dtype=torch.int32)  # the graph's launches add into it
+    ms = graph_ms(lambda: fold(dec_acc))
+    ms_events = cuda_ms_each(fold_setup, fold, 5)
+    plain_ms = cuda_ms_each(fold_setup, lambda dec: kp.peel_decrement_fold_ref(
+        work_e, work_j, counts, *fold_args, m=m, dec=dec), 1)
+    nbytes, ops, _ = k2_call_bound(front, csr, N, Eid, pinned, mods)
     b_ms, b_by = bound_ms(nbytes, ops)
-    return dict(state=label, level=int(l), frontier_edges=int(inCurr.sum()),
-                active_chunks=int(active.sum()), n_chunks=n_chunks,
-                rows_active=rows_active, rows_frontier=rows_front,
-                pinned=pinned is not None, decrements=int(dec_k.sum()),
-                max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                bound_by=b_by, bytes=nbytes, ops=ops)
+
+    # the update after this fold: kernel, plain version, torch executors'
+    def upd_setup():
+        return (dec_k.clone(), S_ext.clone(), processed.clone(),
+                inCurr.clone(), l, csr.u, csr.v, csr.Es, *work_buffers())
+
+    outs = []
+    for fn in (kp.sublevel_update, kp.sublevel_update_ref):
+        args = upd_setup()
+        fn(*args, m=m)
+        n_it = int(args[-1][0])
+        items = torch.stack([args[-3][:n_it], args[-2][:n_it]]).long()
+        items = torch.sort(items[0] * (1 << 20) + items[1]).values
+        outs.append((args[:4], args[-1][:3], items))
+    (kd, kS, kP, kC), k_counts, k_items = outs[0]
+    (pd, pS, pP, pC), p_counts, p_items = outs[1]
+    tS, tP = S_ext.clone(), processed.clone()
+    tC = kp.apply_decrements(dec_k.clone(), tS, tP, inCurr.clone(),
+                             l.reshape(()), m)
+    torch.cuda.synchronize()
+    upd_err = max(max_abs_err(x, y) for x, y in (
+        (kS, pS), (kP, pP), (kC, pC), (kd, pd), (kd, torch.zeros_like(kd)),
+        (kS, tS), (kP, tP), (kC, tC)))
+    same = (upd_err == 0 and torch.equal(k_counts, p_counts)
+            and torch.equal(k_items, p_items))
+    if not same:
+        raise AssertionError(f"update ({label}) disagrees with its plain "
+                             f"version or the torch executors' step")
+    saved = upd_setup()
+    work = upd_setup()
+
+    def upd_restore():
+        for dst, src in zip(work[:4], saved[:4]):
+            dst.copy_(src)
+
+    upd_ms = graph_ms(lambda: kp.sublevel_update(*work, m=m),
+                      restore=upd_restore)
+    upd_ms_events = cuda_ms_each(upd_setup,
+                                 lambda *a: kp.sublevel_update(*a, m=m), 5)
+    upd_plain_ms = cuda_ms_each(
+        upd_setup, lambda *a: kp.sublevel_update_ref(*a, m=m), 1)
+    n_items_next, n_front_next = k_counts[:2].tolist()
+    u_bytes, _, _ = update_bound(m, int(front.numel()),
+                                 int((dec_k != 0).sum()), n_front_next)
+    u_ms, u_by = bound_ms(u_bytes, 0)
+    return dict(state=label, level=int(l), pinned=pinned is not None,
+                frontier_edges=int(front.numel()), work_items=n_items,
+                rows_frontier=int(torch.cumsum(kp._scan_probe(
+                    front, csr.u, csr.v, csr.Es)[1].long(), 0)[-1]),
+                decrements=int(dec_k.sum()), max_abs_err=err, ms=ms,
+                ms_events=ms_events, plain_ms=plain_ms, bound_ms=b_ms,
+                bound_by=b_by, bytes=nbytes, ops=ops,
+                update=dict(max_abs_err=upd_err, ms=upd_ms,
+                            ms_events=upd_ms_events, plain_ms=upd_plain_ms,
+                            bound_ms=u_ms, bound_by=u_by, bytes=u_bytes,
+                            next_frontier_edges=n_front_next,
+                            next_work_items=n_items_next))
 
 
 def check_k2(g, dev, S0, mods) -> list:
-    """K2 vs its plain version at three states of a full-size run."""
+    """K2 and the update at four states of a full-size run: a level's first
+    sub-level at the start, at a middle level (with and without pinned
+    edges) and after a compaction."""
     pkt_mod, sup = mods["pkt"], mods["support"]
     m = g.m
     tabs, chunk, n_chunks = pkt_mod.prepare_peel_device(g, None, device=dev)
+    csr = pkt_mod.prepare_peel_csr(g, device=dev)
     arrays = g.device_arrays(dev)
     N, Eid = arrays["N"], arrays["Eid"]
     iters = sup._search_iters(g)
@@ -208,36 +491,45 @@ def check_k2(g, dev, S0, mods) -> list:
     processed = torch.zeros(m + 1, dtype=torch.bool, device=dev)
     processed[m] = True
     rng = np.random.default_rng(SEED)
-    cases = [k2_case("first sub-level", tabs, chunk, n_chunks, iters, N, Eid,
-                     S_ext, processed, m, None, mods)]
+    st = dict(csr=csr, tabs=tabs, chunk=chunk, n_chunks=n_chunks,
+              iters=iters, N=N, Eid=Eid, m=m, pinned=None, S_ext=S_ext,
+              processed=processed)
+    cases = [k2_case("first sub-level", st, mods)]
     # a middle level: peel until half the edges are gone (level boundary)
     S_mid, p_mid, _, _ = pkt_mod._peel_loop(
-        N, Eid, S_ext, processed, tabs, m=m, chunk=chunk, n_chunks=n_chunks,
+        N, Eid, S_ext, processed, csr, m=m, chunk=None, n_chunks=None,
         iters=iters, mode="kernel", stop_live=m // 2)
-    cases.append(k2_case("middle level", tabs, chunk, n_chunks, iters, N,
-                         Eid, S_mid, p_mid, m, None, mods))
+    cases.append(k2_case("middle level", dict(st, S_ext=S_mid,
+                                              processed=p_mid), mods))
     live_mid = ~p_mid.cpu().numpy()
     pin = torch.tensor(np.append(live_mid[:m] & (rng.random(m) < 0.25),
                                  False), device=dev)
-    cases.append(k2_case("middle level, pinned", tabs, chunk, n_chunks,
-                         iters, N, Eid, S_mid, p_mid, m, pin, mods))
+    cases.append(k2_case("middle level, pinned",
+                         dict(st, S_ext=S_mid, processed=p_mid, pinned=pin),
+                         mods))
     # after a compaction: peel to the default compaction point, then gather
     # the survivors into a compacted subproblem as the segmented peel does
     target = int(pkt_mod._COMPACT_FRAC * m)
     S_c, p_c, _, _ = pkt_mod._peel_loop(
-        N, Eid, S_mid, p_mid, tabs, m=m, chunk=chunk, n_chunks=n_chunks,
+        N, Eid, S_mid, p_mid, csr, m=m, chunk=None, n_chunks=None,
         iters=iters, mode="kernel", stop_live=target)
     live_idx = np.nonzero(~p_c[:m].cpu().numpy())[0]
-    del tabs
+    del tabs, st
     torch.cuda.empty_cache()
     if live_idx.size:
-        sub = pkt_mod._make_subproblem(
-            g.El[live_idx], live_idx, S_c[:m].cpu().numpy()[live_idx], None,
-            chunk_req=None, table_mode="device", device=dev)
-        cases.append(k2_case(
-            "after a compaction", sub["tabs"], sub["chunk"], sub["n_chunks"],
-            sub["iters"], sub["N"], sub["Eid"], sub["S_ext0"],
-            sub["processed0"], sub["m"], None, mods))
+        rows = (g.El[live_idx], live_idx, S_c[:m].cpu().numpy()[live_idx],
+                None)
+        sub = pkt_mod._make_subproblem(*rows, chunk_req=None,
+                                       table_mode="device", mode="kernel",
+                                       device=dev)
+        sub_t = pkt_mod._make_subproblem(*rows, chunk_req=None,
+                                         table_mode="device", mode="chunked",
+                                         device=dev)
+        cases.append(k2_case("after a compaction", dict(
+            csr=sub["tabs"], tabs=sub_t["tabs"], chunk=sub_t["chunk"],
+            n_chunks=sub_t["n_chunks"], iters=sub["iters"], N=sub["N"],
+            Eid=sub["Eid"], m=sub["m"], pinned=None, S_ext=sub["S_ext0"],
+            processed=sub["processed0"]), mods))
     return cases
 
 
@@ -323,12 +615,16 @@ def check_k3_buckets(g, dev, kint, ops) -> list:
     return rows
 
 
-def profile_run(fn) -> dict:
+def profile_run(fn, named=None, sequence=None) -> dict:
     """Run ``fn()`` once under ``torch.profiler``; device time by kernel.
 
     The kernels run on one stream, so their durations do not overlap and
     their sum is the device's busy time; the rest of the wall time (which
     here includes the profiler's own host overhead) the device sat idle.
+    ``named`` maps a label to a substring of kernel names: the result's
+    ``named`` sums the device time and calls of the matching kernels.
+    ``sequence`` (a substring) also returns the matching launches' device
+    milliseconds in launch order, under ``sequence_ms`` (not emitted).
     """
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -348,7 +644,17 @@ def profile_run(fn) -> dict:
         by_name[ev.name] = (tot + ev.time_range.elapsed_us(), cnt + 1)
     busy_us = sum(t for t, _ in by_name.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:10]
+    sums = {label: dict(
+        ms=sum(t for k, (t, _) in by_name.items() if sub in k) / 1e3,
+        calls=sum(c for k, (_, c) in by_name.items() if sub in k))
+        for label, sub in (named or {}).items()}
+    seq = [ev.time_range.elapsed_us() / 1e3 for ev in
+           sorted((ev for ev in prof.events()
+                   if ev.device_type == DeviceType.CUDA and sequence
+                   and sequence in ev.name),
+                  key=lambda ev: ev.time_range.start)]
     return dict(wall_ms=wall_us / 1e3, device_busy_ms=busy_us / 1e3,
+                named=sums, sequence_ms=seq,
                 device_idle_share=(1 - busy_us / wall_us) if busy_us else None,
                 device_time_visible=busy_us > 0,
                 top_kernels=[dict(name=name[:120], ms=t / 1e3, calls=c)
@@ -384,7 +690,8 @@ def main() -> int:
     from repro_torch.serve.truss_engine import TrussEngine
 
     mods = dict(pkt=pkt_mod, support=sup, kpeel=kpeel, ksupport=ksupport,
-                wc=wc)
+                wc=wc, trilist=importlib.import_module(
+                    "repro_torch.core.triangle_list"))
     dev = torch.device(DEVICE)
     t_all = time.perf_counter()
 
@@ -441,21 +748,37 @@ def main() -> int:
     # ---- 4. main path --------------------------------------------------------
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
+    # the kernel path must not touch the chunk mask: count its calls
+    mask_calls = []
+    chunk_mask = pkt_mod._active_chunk_mask
+
+    def counted_mask(*args, **kwargs):
+        mask_calls.append(1)
+        return chunk_mask(*args, **kwargs)
+
+    pkt_mod._active_chunk_mask = counted_mask
     t0 = time.perf_counter()
     ksupport.COUNTS.reset()
     kpeel.COUNTS.reset()
+    kpeel.UPDATE_COUNTS.reset()
     kint.COUNTS.reset()
     res = pkt_mod.pkt(g, phase_timings=True, device=dev)
     truss = pkt_mod.align_to_input(res.trussness, g, None, n, keys=row_keys)
     counts = dict(support=ksupport.COUNTS.as_dict(),
                   peel=kpeel.COUNTS.as_dict(),
+                  update=kpeel.UPDATE_COUNTS.as_dict(),
                   intersect=kint.COUNTS.as_dict())
     t_kernel = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated()
-    if counts["support"]["kernel"] < 1 or counts["peel"]["kernel"] < 1:
-        raise AssertionError(f"main path did not launch the kernels: {counts}")
-    if counts["support"]["plain"] or counts["peel"]["plain"]:
-        raise AssertionError(f"main path ran a plain version: {counts}")
+    pkt_mod._active_chunk_mask = chunk_mask
+    if (counts["support"]["kernel"] != 1
+            or counts["peel"]["kernel"] != res.sublevels
+            or counts["update"]["kernel"] < res.sublevels):
+        raise AssertionError(f"main path did not launch the kernels once "
+                             f"per phase / sub-level: {counts}")
+    if any(c["plain"] for c in counts.values()) or mask_calls:
+        raise AssertionError(f"main path ran a plain version or the chunk "
+                             f"mask ({len(mask_calls)} calls): {counts}")
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
     ref = pkt_mod.pkt(g, mode="chunked", support_mode="torch", device=dev)
@@ -490,8 +813,52 @@ def main() -> int:
     torch.cuda.empty_cache()
     # where the main path's device time goes: one more kernel-path run,
     # traced (outside the counted window above)
-    emit("main_path_profile",
-         **profile_run(lambda: pkt_mod.pkt(g, device=dev)))
+    main_profile = profile_run(
+        lambda: pkt_mod.pkt(g, device=dev),
+        named=dict(peel_decrement_fold="peel_kernel",
+                   sublevel_update="update_kernel",
+                   support_accumulate="support_kernel"),
+        sequence="peel_kernel")
+    k2_launch_ms = main_profile.pop("sequence_ms")
+    emit("main_path_profile", **main_profile)
+    # the bound of every K2 and update launch of one decomposition, from
+    # each launch's own inputs (an instrumented run: it reads them back)
+    t0 = time.perf_counter()
+    with K2Bounds(mods) as k2_bounds:
+        res_b = pkt_mod.pkt(g, device=dev)
+    if not np.array_equal(res_b.trussness, res.trussness):
+        raise AssertionError("instrumented run differs from the main path")
+    for key, label in (("peel", "peel_decrement_fold"),
+                       ("update", "sublevel_update")):
+        if main_profile["named"][label]["calls"] != counts[key]["kernel"]:
+            raise AssertionError(f"the profile saw "
+                                 f"{main_profile['named'][label]} {label} "
+                                 f"launches, the main path made "
+                                 f"{counts[key]['kernel']}")
+    k2_total = dict(k2_bounds.summed("fold"),
+                    device_ms=main_profile["named"]["peel_decrement_fold"])
+    update_total = dict(k2_bounds.summed("update"),
+                        device_ms=main_profile["named"]["sublevel_update"])
+    # K2's launches by the wedge rows of their frontier: the profile's
+    # launch times beside the instrumented run's bounds (same launch order)
+    folds = [c for c in k2_bounds.calls if c[0] == "fold"]
+    if len(folds) != len(k2_launch_ms):
+        raise AssertionError(f"{len(k2_launch_ms)} traced K2 launches, "
+                             f"{len(folds)} instrumented")
+    by_rows = {}
+    for (_, nb, ops, rows), ms in zip(folds, k2_launch_ms):
+        key = "<1e3" if rows < 1000 else f"1e{min(6, len(str(rows)) - 1)}+"
+        row = by_rows.setdefault(key, dict(launches=0, rows=0, device_ms=0.0,
+                                           bound_ms=0.0))
+        row["launches"] += 1
+        row["rows"] += rows
+        row["device_ms"] += ms
+        row["bound_ms"] += bound_ms(nb, ops)[0]
+    emit("main_path_k2_aggregate", peel_decrement_fold=k2_total,
+         sublevel_update=update_total, k2_by_frontier_rows=by_rows,
+         seconds=time.perf_counter() - t0)
+    del res_b, k2_bounds
+    torch.cuda.empty_cache()
 
     # ---- 5. small-graph oracle -----------------------------------------------
     t0 = time.perf_counter()
@@ -670,8 +1037,10 @@ def main() -> int:
          seconds_by_engine=cli_s, seconds=time.perf_counter() - t0)
 
     # ---- summary -------------------------------------------------------------
-    # the summary line reports the widest K2 launch checked
-    k2_first = max(k2_cases, key=lambda c: c["rows_active"])
+    # the summary line reports the widest K2 launch checked (and the update
+    # after it); the per_pkt_* keys hold one decomposition's launches
+    k2_first = max(k2_cases, key=lambda c: c["rows_frontier"])
+    upd_first = k2_first["update"]
     kernels = [
         dict(name="support_accumulate", route="cuda",
              source="src/repro_torch/kernels/csrc/support.cu",
@@ -688,7 +1057,19 @@ def main() -> int:
              state=k2_first["state"], ms=k2_first["ms"],
              plain_ms=k2_first["plain_ms"],
              bound_ms=k2_first["bound_ms"], bound_by=k2_first["bound_by"],
-             library_ms=None),
+             library_ms=None,
+             per_pkt_device_ms=k2_total["device_ms"]["ms"],
+             per_pkt_bound_ms=k2_total["bound_ms"]),
+        dict(name="sublevel_update", route="cuda",
+             source="src/repro_torch/kernels/csrc/peel.cu",
+             replaces="src/repro/core/pkt.py:264",
+             launches=main_counts["update"]["kernel"],
+             max_abs_err=max(c["update"]["max_abs_err"] for c in k2_cases),
+             state=k2_first["state"], ms=upd_first["ms"],
+             plain_ms=upd_first["plain_ms"], bound_ms=upd_first["bound_ms"],
+             bound_by=upd_first["bound_by"], library_ms=None,
+             per_pkt_device_ms=update_total["device_ms"]["ms"],
+             per_pkt_bound_ms=update_total["bound_ms"]),
         # the widest bucket; the all_buckets_* keys sum the six launches of
         # one compute_support_kernel call
         dict(name="intersect_blocked", route="cuda",

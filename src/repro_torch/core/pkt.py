@@ -11,14 +11,18 @@ the mapping from the OpenMP original):
                       deterministic)
   * tie-break       → the paper's "lowest frontier edge id processes the
                       triangle" predicate, evaluated per wedge hit
-  * dynamic sched.  → chunk skipping over the flat peel wedge table
+  * dynamic sched.  → a work list of the frontier's wedges (kernel), or
+                      chunk skipping over the flat peel wedge table (torch)
 
 Three peel executors (``mode`` / ``peel_mode``), bitwise identical:
-  mode="kernel" (default): ``kernels/peel.py`` — the hand-written CUDA kernel
-                 on the card (one launch per sub-level over all chunks, the
-                 active mask read on the device), its plain PyTorch version
-                 on CPU tensors.
-  mode="chunked": torch ops over the rows of the active chunks only.
+  mode="kernel" (default): ``kernels/peel.py`` — two hand-written CUDA
+                 kernels on the card, their plain PyTorch versions on CPU
+                 tensors.  Per sub-level: the decrement fold over the
+                 frontier's work list, which reads the wedges from the CSR
+                 (no peel table exists), then the fused state update that
+                 forms the next frontier's work list on the device.
+  mode="chunked": torch ops over the rows of the table chunks that hold
+                 frontier edges (``_active_chunk_mask``).
   mode="dense":  torch ops over the whole table every sub-level, masked.
 
 The support phase has its own executor axis (``support_mode`` ∈
@@ -26,7 +30,7 @@ The support phase has its own executor axis (``support_mode`` ∈
 
 **The loops run on the host.**  The JAX package keeps the level and
 sub-level loops on the device (``lax.while_loop``).  Here Python drives them
-and reads one small tensor per sub-level: ``[any(inCurr), #processed]`` as
+and reads one small tensor per sub-level: ``[#frontier, #processed]`` as
 one ``.tolist()``, which answers both the sub-level test and, when the level
 ends, the level test.  A decomposition therefore syncs once per sub-level;
 each compaction segment adds one sync for its live count at the start and
@@ -56,6 +60,17 @@ from repro_torch.kernels import wedge_common
 _SENTINEL_S = 1 << 30
 
 PEEL_MODES = ("chunked", "dense", "kernel")
+
+
+class PeelCSR(NamedTuple):
+    """What the kernel executor reads instead of a peel table: the edge
+    endpoints and CSR offsets (pow2-padded in compacted subproblems) and the
+    size of the frontier work list."""
+
+    u: torch.Tensor          # (m_out,) int32, padding slots 0
+    v: torch.Tensor          # (m_out,) int32, padding slots 0
+    Es: torch.Tensor         # (n_pad+1,) int32 CSR offsets
+    work_cap: int            # work items the largest frontier can make
 
 
 class PeelTables(NamedTuple):
@@ -176,23 +191,50 @@ def prepare_peel_device(g: CSRGraph, chunk: int | None, *,
     support_mod._check_table_size(size_pad)
     chunk_eff = wedge_common.pow2_chunk(size_pad, chunk, size=size)
     n_chunks = size_pad // chunk_eff
-    if m_out != g.m:
-        # pow2 bucket (compacted callers): pad the edge and vertex arrays as
-        # the JAX package does, so the rows and sentinels come out identical
-        u = torch.tensor(wedge_common.pad1(g.El[:, 0], m_out, 0), device=device)
-        v = torch.tensor(wedge_common.pad1(g.El[:, 1], m_out, 0), device=device)
-        n_es = wedge_common.next_pow2(g.n + 1)
-        Es = torch.tensor(wedge_common.pad1(g.Es, n_es, 2 * g.m),
-                          device=device)
-    else:
-        dev = g.device_arrays(device)
-        u, v, Es = dev["u"], dev["v"], dev["Es"]
+    u, v, Es = _peel_operands(g, m_out, device)
     e1, cand, lo, hi, _off, c_start, c_end, has = \
         support_mod._build_peel_table_dev(u, v, Es, m_real, m=m_out,
                                           size=size_pad, chunk=chunk_eff)
     tabs = PeelTables(e1=e1, cand_slot=cand, lo=lo, hi=hi, c_start=c_start,
                       c_end=c_end, has_entries=has)
     return tabs, chunk_eff, n_chunks
+
+
+def _peel_operands(g: CSRGraph, m_out: int, device: torch.device):
+    """``(u, v, Es)`` on ``device`` for an edge space of ``m_out`` slots.
+
+    A pow2 bucket (``m_out != g.m``, compacted callers) pads the edge and
+    vertex arrays as the JAX package does: padding edges are ``(0, 0)`` and
+    the offsets past ``n`` are ``2m``, so the rows and sentinels come out
+    identical.
+    """
+    if m_out == g.m:
+        dev = g.device_arrays(device)
+        return dev["u"], dev["v"], dev["Es"]
+    u = torch.tensor(wedge_common.pad1(g.El[:, 0], m_out, 0), device=device)
+    v = torch.tensor(wedge_common.pad1(g.El[:, 1], m_out, 0), device=device)
+    n_es = wedge_common.next_pow2(g.n + 1)
+    Es = torch.tensor(wedge_common.pad1(g.Es, n_es, 2 * g.m), device=device)
+    return u, v, Es
+
+
+def prepare_peel_csr(g: CSRGraph, *, m_out: int | None = None,
+                     device="cuda") -> PeelCSR:
+    """The kernel executor's operands for ``g`` — no table is built.
+
+    The graph is refused, as ``prepare_peel_device`` and the JAX package
+    refuse it, when its padded peel table would overflow the int32 layout:
+    both packages accept the same graphs.  ``m_out`` (default ``g.m``) sizes
+    the edge state space, as in ``prepare_peel_device``.
+    """
+    device = resolve_device(device)
+    m_out = g.m if m_out is None else m_out
+    size = support_mod.peel_table_size(g)
+    if size:
+        support_mod._check_table_size(wedge_common.next_pow2(size))
+    u, v, Es = _peel_operands(g, m_out, device)
+    return PeelCSR(u=u, v=v, Es=Es,
+                   work_cap=peel_kernel.work_capacity(g.m, size))
 
 
 def _active_chunk_mask(inCurr, tabs: PeelTables, m: int, n_chunks: int):
@@ -215,13 +257,7 @@ def _active_chunk_mask(inCurr, tabs: PeelTables, m: int, n_chunks: int):
 
 def _decrements(mode: str, N, Eid, S_ext, processed, inCurr, l, tabs, *,
                 pinned, m: int, chunk: int, n_chunks: int, iters: int):
-    """One sub-level's (m+1,) int32 decrement vector, by the chosen executor."""
-    if mode == "kernel":
-        active = _active_chunk_mask(inCurr, tabs, m, n_chunks)
-        return peel_kernel.peel_decrement_fold(
-            active, l.reshape(1), tabs.e1, tabs.cand_slot, tabs.lo, tabs.hi,
-            N, Eid, S_ext, processed, inCurr, pinned, chunk=chunk,
-            n_chunks=n_chunks, iters=iters, m=m)
+    """One sub-level's (m+1,) int32 decrement vector, by a torch executor."""
     dec = torch.zeros(m + 1, dtype=torch.int32, device=S_ext.device)
     if mode == "dense":
         # every row of the table, every sub-level, frontier-masked
@@ -246,10 +282,14 @@ def _decrements(mode: str, N, Eid, S_ext, processed, inCurr, l, tabs, *,
     return dec
 
 
-def _peel_loop(N, Eid, S_ext0, processed0, tabs: PeelTables, *, m: int,
-               chunk: int, n_chunks: int, iters: int, mode: str, pinned=None,
-               stop_live: int = 0):
+def _peel_loop(N, Eid, S_ext0, processed0, tabs, *, m: int,
+               chunk: int | None, n_chunks: int | None, iters: int,
+               mode: str, pinned=None, stop_live: int = 0):
     """Full level/sub-level peel over extended (m+1,) edge state.
+
+    ``tabs`` is a :class:`PeelCSR` for ``mode="kernel"`` and a
+    :class:`PeelTables` (with its ``chunk``/``n_chunks``) for the torch
+    executors.  The inputs are not modified.
 
     ``S_ext0``/``processed0`` define which slots are live: slot m must be the
     processed sentinel, and callers may pre-mark extra padding slots as
@@ -265,7 +305,10 @@ def _peel_loop(N, Eid, S_ext0, processed0, tabs: PeelTables, *, m: int,
     below it — always at a level boundary, so the caller can gather the
     survivors into a compacted edge space and continue bitwise identically.
     """
-    S_ext, processed = S_ext0, processed0
+    S_ext, processed = S_ext0.clone(), processed0.clone()
+    if mode == "kernel":
+        return _peel_loop_kernel(N, Eid, S_ext, processed, tabs, m=m,
+                                 pinned=pinned, stop_live=stop_live)
     todo = (m + 1) - int(processed.sum())
     levels = subs = 0
     while todo > stop_live:
@@ -280,15 +323,53 @@ def _peel_loop(N, Eid, S_ext0, processed0, tabs: PeelTables, *, m: int,
             dec = _decrements(mode, N, Eid, S_ext, processed, inCurr, l, tabs,
                               pinned=pinned, m=m, chunk=chunk,
                               n_chunks=n_chunks, iters=iters)
-            S_ext = torch.where(~processed & ~inCurr & (dec > 0),
-                                torch.maximum(S_ext - dec, l), S_ext)
-            processed = processed | inCurr
-            inCurr = ~processed & (S_ext == l)
-            inCurr[m] = False
+            inCurr = peel_kernel.apply_decrements(dec, S_ext, processed,
+                                                  inCurr, l, m)
             subs += 1
-            more, n_done = torch.stack(
-                [inCurr.any().to(torch.int64), processed.sum()]).tolist()
-            if not more:
+            n_front, n_done = torch.stack(
+                [inCurr.sum(), processed.sum()]).tolist()
+            if not n_front:
+                break
+        todo = (m + 1) - n_done
+    return S_ext, processed, levels, subs
+
+
+def _peel_loop_kernel(N, Eid, S_ext, processed, csr: PeelCSR, *, m: int,
+                      pinned, stop_live: int):
+    """``_peel_loop`` for the kernel executor; updates ``S_ext`` and
+    ``processed`` in place and returns them with the loop counts.
+
+    A sub-level is two launches: the decrement fold over the frontier's
+    work list, then the fused update, which applies the decrements, forms
+    the next frontier's work list and zeroes ``dec``.  The host then reads
+    ``[#frontier, #processed]`` once.  A level starts with the level value
+    ``l = min(live S)`` on the device and the same update over a zero
+    ``dec`` and an empty frontier, which forms the level's first frontier
+    (never empty: some live edge holds the minimum).
+    """
+    dev = S_ext.device
+    inCurr = torch.zeros(m + 1, dtype=torch.bool, device=dev)
+    dec = torch.zeros(m + 1, dtype=torch.int32, device=dev)
+    work_e = torch.empty(csr.work_cap, dtype=torch.int32, device=dev)
+    work_j = torch.empty(csr.work_cap, dtype=torch.int32, device=dev)
+    counts = torch.zeros(4, dtype=torch.int32, device=dev)
+    work = (csr.u, csr.v, csr.Es, work_e, work_j, counts)
+    todo = (m + 1) - int(processed.sum())
+    levels = subs = 0
+    while todo > stop_live:
+        l = torch.where(processed, _SENTINEL_S, S_ext).min().reshape(1)
+        peel_kernel.sublevel_update(dec, S_ext, processed, inCurr, l, *work,
+                                    m=m)
+        levels += 1
+        while True:
+            peel_kernel.peel_decrement_fold(
+                work_e, work_j, counts, l, csr.u, csr.v, csr.Es, N, Eid,
+                S_ext, processed, inCurr, pinned, m=m, dec=dec)
+            peel_kernel.sublevel_update(dec, S_ext, processed, inCurr, l,
+                                        *work, m=m)
+            subs += 1
+            n_front, n_done = counts[1:3].tolist()
+            if not n_front:
                 break
         todo = (m + 1) - n_done
     return S_ext, processed, levels, subs
@@ -313,7 +394,7 @@ _MIN_M_PAD = 8
 
 def _make_subproblem(El_rows: np.ndarray, ids: np.ndarray,
                      S_rows: np.ndarray, pinned_rows: np.ndarray | None, *,
-                     chunk_req: int | None, table_mode: str,
+                     chunk_req: int | None, table_mode: str, mode: str,
                      device: torch.device) -> dict:
     """Compact ``El_rows`` (live edges, ascending original order) into a
     fresh pow2-bucketed peel problem.
@@ -322,7 +403,9 @@ def _make_subproblem(El_rows: np.ndarray, ids: np.ndarray,
     the live supports (the continuation state), ``pinned_rows`` the pinned
     schedule marks (or None).  Vertex ids are rank-relabeled —
     order-preserving, so ``build_csr``'s lexicographic edge ids keep the
-    input row order and the peel tie-break is unchanged.
+    input row order and the peel tie-break is unchanged.  The kernel
+    executor (``mode="kernel"``) gets the padded CSR and no table; the
+    torch executors get a table built where ``table_mode`` says.
     """
     from repro_torch.graphs.csr import build_csr
 
@@ -332,7 +415,10 @@ def _make_subproblem(El_rows: np.ndarray, ids: np.ndarray,
     g_sub = build_csr(E_sub, verts.shape[0])
     m_pad = max(_MIN_M_PAD, wedge_common.next_pow2(m_sub))
 
-    if table_mode == "device":
+    if mode == "kernel":
+        tabs = prepare_peel_csr(g_sub, m_out=m_pad, device=device)
+        chunk_eff = n_chunks = None
+    elif table_mode == "device":
         tabs, chunk_eff, n_chunks = prepare_peel_device(
             g_sub, chunk_req, m_out=m_pad, m_real=m_sub, device=device)
     else:
@@ -425,7 +511,8 @@ def _segmented_peel(problem: dict, out: np.ndarray, *, mode: str,
         problem = _make_subproblem(
             problem["El"][live_idx], ids[live_idx], S_np[live_idx],
             None if pin_np is None else pin_np[:m][live_idx],
-            chunk_req=chunk_req, table_mode=table_mode, device=device)
+            chunk_req=chunk_req, table_mode=table_mode, mode=mode,
+            device=device)
         if problem["live"] >= n_live:
             raise AssertionError("compaction must strictly shrink the problem")
         if timings is not None:
@@ -467,7 +554,7 @@ def peel_live_subset(El: np.ndarray, live_ids: np.ndarray,
         np.asarray(El)[live_ids], np.arange(k, dtype=np.int64),
         np.asarray(S0_live, dtype=np.int32),
         None if pinned_live is None else np.asarray(pinned_live, bool),
-        chunk_req=chunk, table_mode=table_mode, device=device)
+        chunk_req=chunk, table_mode=table_mode, mode=mode, device=device)
     _segmented_peel(problem, out, mode=mode, table_mode=table_mode,
                     compact_frac=compact_frac, compact_min=compact_min,
                     chunk_req=chunk, device=device)
@@ -496,10 +583,12 @@ def pkt(g: CSRGraph, *, chunk: int | None = None, mode: str = "kernel",
         peel_mode: alias for ``mode``.
         support_mode: support executor — one of
             ``support.SUPPORT_MODES`` ("torch", "kernel").
-        table_mode: where the wedge tables are built
+        table_mode: where the torch executors' wedge tables are built
             (``support.TABLE_MODES``): "device" — the default, unless
             prebuilt host tables are passed — or "numpy" (built on the host,
-            kept as the parity oracle).
+            kept as the parity oracle).  The kernel executors read the CSR
+            and build no table; they ignore ``table_mode`` and the two
+            tables below.
         support_table: optional prebuilt host support table (implies
             ``table_mode="numpy"`` unless overridden).
         peel_table: optional prebuilt host peel table (same implication).
@@ -543,7 +632,9 @@ def pkt(g: CSRGraph, *, chunk: int | None = None, mode: str = "kernel",
                          phases=timings)
 
     # ---- support phase -----------------------------------------------------
-    if table_mode == "device" and support_table is None:
+    # the kernel executor reads the CSR: no support table, host or device
+    if support_mode == "kernel" or (table_mode == "device"
+                                    and support_table is None):
         S0_dev = support_mod._support_device(
             g, mode=support_mode, chunk=chunk, device=device, timings=timings)
         S0 = S0_dev.cpu().numpy()
@@ -562,9 +653,12 @@ def pkt(g: CSRGraph, *, chunk: int | None = None, mode: str = "kernel",
             timings["support"] = timings.get("support", 0.0) + \
                 (time.perf_counter() - t0)
 
-    # ---- peel tables -------------------------------------------------------
+    # ---- peel tables (torch executors) or CSR operands (kernel) -------------
     t0 = time.perf_counter()
-    if table_mode == "device" and peel_table is None:
+    if mode == "kernel":
+        tabs = prepare_peel_csr(g, device=device)
+        chunk_eff = n_chunks = None
+    elif table_mode == "device" and peel_table is None:
         tabs, chunk_eff, n_chunks = prepare_peel_device(g, chunk,
                                                         device=device)
     else:

@@ -15,13 +15,15 @@ O(1) membership tests.  The port keeps the JAX package's adaptation
 Two executors (``compute_support(mode=...)``), bitwise identical:
 
   mode="kernel" (default): ``kernels/support.py`` — the hand-written CUDA
-      kernel on the card, its plain PyTorch version on CPU tensors.
-  mode="torch": the torch-op port of the JAX package's flat jnp executor,
-      walked in slices of ``wedge_common.SLICE_ROWS`` rows.
+      kernel on the card, its plain PyTorch version on CPU tensors.  It
+      reads the wedges from the CSR; no table is built.
+  mode="torch": the torch-op port of the JAX package's flat jnp executor
+      over the wedge table, walked in slices of ``wedge_common.SLICE_ROWS``
+      rows.
 
-and two places to build the tables (``table_mode``): "device" builds the
-rows on the device from the CSR arrays (DESIGN.md §10), "numpy" on the
-host.
+and, for the torch executor, two places to build the table
+(``table_mode``): "device" builds the rows on the device from the CSR
+arrays (DESIGN.md §10), "numpy" on the host.
 """
 
 from __future__ import annotations
@@ -236,33 +238,17 @@ def _build_peel_table_dev(u, v, Es, m_real: int, *, m: int, size: int,
     return e1, cand, lo, hi, off, c_start, c_end, has
 
 
-def support_from_table_arrays(e1, cand, lo, hi, N, Eid, *, m: int, mode: str,
-                              chunk: int, n_chunks: int, iters: int):
-    """Run the selected support executor over prepared table arrays → (m,) S.
-
-    The single home of the executor dispatch, shared by the device-table
-    path below and the numpy-table path of ``compute_support``.  Table
-    arrays follow the ``pad_chunked`` convention and span
-    ``n_chunks * chunk`` rows.
-    """
-    if mode == "kernel":
-        from repro_torch.kernels.support import support_accumulate
-
-        S, _ = support_accumulate(
-            e1, cand, lo, hi, N, Eid, chunk=chunk, n_chunks=n_chunks,
-            iters=iters, m=m)
-        return S[:m]
-    return _support_torch(N, Eid, e1, cand, lo, hi, iters, m)
-
-
 def _support_device(g: CSRGraph, *, mode: str, chunk: int | None,
                     device: torch.device, timings: dict | None = None):
-    """Support phase with the table built on the device; returns (m,) int32
-    on ``device`` (no host round-trip — ``pkt`` feeds it to the peel).
+    """Support phase on the device; returns (m,) int32 on ``device`` (no
+    host round-trip — ``pkt`` feeds it to the peel).
 
-    With ``timings`` the table build and the executor are attributed
-    together to "support", as in the JAX package, whose fused jit cannot
-    separate them ("tables" then covers only the peel-table build).
+    ``mode="kernel"`` reads the CSR (``kernels/support.py``) and builds no
+    table; ``mode="torch"`` builds the oriented table on the device and runs
+    the torch executor over it.  Both refuse the graphs whose padded table
+    would overflow the int32 layout, as the JAX package does.  With
+    ``timings`` the table build and the executor are attributed together to
+    "support", as in the JAX package, whose fused jit cannot separate them.
     """
     size = support_table_size(g)
     if size == 0:
@@ -270,14 +256,21 @@ def _support_device(g: CSRGraph, *, mode: str, chunk: int | None,
     size_pad = next_pow2(size)
     _check_table_size(size_pad)
     dev = g.device_arrays(device)
-    chunk_eff = pow2_chunk(size_pad, chunk, size=size)
     t0 = time.perf_counter()
-    e1, cand, lo, hi, _ = _build_support_table_dev(
-        dev["u"], dev["v"], dev["Es"], dev["Eo"], g.m, m=g.m, size=size_pad)
-    S = support_from_table_arrays(
-        e1, cand, lo, hi, dev["N"], dev["Eid"], m=g.m, mode=mode,
-        chunk=chunk_eff, n_chunks=size_pad // chunk_eff,
-        iters=_search_iters(g, oriented=True))
+    if mode == "kernel":
+        from repro_torch.kernels.support import support_accumulate
+
+        chunk_eff = pow2_chunk(size_pad, chunk, size=size)
+        S, _ = support_accumulate(
+            dev["u"], dev["v"], dev["Es"], dev["Eo"], dev["N"], dev["Eid"],
+            m=g.m, chunk=chunk_eff, n_chunks=size_pad // chunk_eff)
+        S = S[:g.m]
+    else:
+        e1, cand, lo, hi, _ = _build_support_table_dev(
+            dev["u"], dev["v"], dev["Es"], dev["Eo"], g.m, m=g.m,
+            size=size_pad)
+        S = _support_torch(dev["N"], dev["Eid"], e1, cand, lo, hi,
+                           _search_iters(g, oriented=True), g.m)
     if timings is not None:
         synchronize(device)
         timings["support"] = timings.get("support", 0.0) + \
@@ -333,9 +326,11 @@ def compute_support(g: CSRGraph, table: WedgeTable | None = None, *,
 
     ``mode`` selects the executor (``SUPPORT_MODES``, see the module
     docstring); ``chunk`` the table chunk size (auto-derived from the table
-    size when None).  ``table_mode`` selects where the wedge table is built
-    (``TABLE_MODES``): "device" (the default when no prebuilt ``table`` is
-    passed) or "numpy".  ``device`` is where the executor runs: "cuda" by
+    size when None).  ``table_mode`` selects where the torch executor's
+    wedge table is built (``TABLE_MODES``): "device" (the default when no
+    prebuilt ``table`` is passed) or "numpy"; the kernel executor reads the
+    CSR and ignores ``table`` and ``table_mode``.  ``device`` is where the
+    executor runs: "cuda" by
     default (raises when no card is present), "cpu" on request.
     """
     if mode not in SUPPORT_MODES:
@@ -348,7 +343,8 @@ def compute_support(g: CSRGraph, table: WedgeTable | None = None, *,
     device = resolve_device(device)
     if g.m == 0:
         return np.zeros(0, np.int32)
-    if table_mode == "device" and table is None:
+    if mode == "kernel" or (table_mode == "device" and table is None):
+        # the kernel reads the CSR: no table, wherever it would be built
         S = _support_device(g, mode=mode, chunk=chunk, device=device)
         return S.cpu().numpy()
     if table is None:
@@ -361,10 +357,8 @@ def compute_support(g: CSRGraph, table: WedgeTable | None = None, *,
                          m=g.m, chunk=chunk_eff, n_chunks=n_chunks)
     e1, cand, lo, hi = (torch.tensor(a, device=device) for a in arrays)
     dev = g.device_arrays(device)
-    S = support_from_table_arrays(
-        e1, cand, lo, hi, dev["N"], dev["Eid"], m=g.m, mode=mode,
-        chunk=chunk_eff, n_chunks=n_chunks,
-        iters=_search_iters(g, oriented=True))
+    S = _support_torch(dev["N"], dev["Eid"], e1, cand, lo, hi,
+                       _search_iters(g, oriented=True), g.m)
     return S.cpu().numpy()
 
 

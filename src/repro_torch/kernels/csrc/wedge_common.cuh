@@ -1,17 +1,19 @@
-// Shared wedge probe for the support (K1) and peel (K2) kernels.
+// Shared wedge intersection for the support (K1) and peel (K2) kernels.
 //
 // Replaces the jnp search that both Pallas kernels of the JAX package call,
-// src/repro/kernels/wedge_common.py: ranged_searchsorted and probe.  One
-// table row asks whether w = N[cand] lies in the sorted adjacency range
-// N[lo:hi).  The search runs at most `iters` halvings, the same bound the
-// JAX package passes, and stops early once the range is empty: the reference
-// masks the remaining steps, so the index it returns is the same.
+// src/repro/kernels/wedge_common.py: ranged_searchsorted and probe.  A wedge
+// asks whether a candidate id w lies in a sorted adjacency list.  The JAX
+// package runs an `iters`-bounded lower-bound search of w in N[lo:hi); its
+// bound is at least log2 of the longest list, so the index it returns is the
+// exact lower bound.  Here the search runs to the end, over a list in shared
+// memory (K1 stages it) or in device memory (K2, and K1's long lists).  CSR
+// adjacency lists are sorted, so the slot found and the hit are the
+// reference's.
 //
-// On the card the probe is a chain of dependent 4-byte gathers into N.  At
-// the main path's size (Graph500 scale 17) N and Eid are 15 MB each and sit
-// in the 50 MB L2 together, so the chain is bound by L2 latency, not by
-// device-memory bandwidth; the kernels keep many rows in flight per SM to
-// hide it.
+// Both kernels read their wedges from the CSR (no wedge table): an edge's
+// candidates are consecutive slots of one adjacency list, so the lanes of a
+// warp read them coalesced, and the list they probe is the same for every
+// candidate of the edge.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -19,36 +21,73 @@
 
 namespace wedge {
 
-// Lower bound of w in N[lo:hi): the first index whose value is >= w, or hi.
-__device__ __forceinline__ int ranged_lower_bound(const int* __restrict__ N,
-                                                  int w, int lo, int hi,
-                                                  int iters) {
-  for (int t = 0; t < iters && lo < hi; ++t) {
-    // (lo + hi) >> 1 as the reference computes it, without int overflow
-    const int mid = static_cast<int>(
-        (static_cast<unsigned>(lo) + static_cast<unsigned>(hi)) >> 1);
-    if (__ldg(N + mid) < w) {
-      lo = mid + 1;
-    } else {
-      hi = mid;
-    }
+constexpr unsigned kFullMask = 0xffffffffu;
+
+// Exact lower bounds of two ids wa, wb in the sorted list p[0:n): for each
+// the first index whose value is >= w, or n.  p is a shared- or
+// device-memory address.  The search is branch-free and takes the same
+// ceil(log2(n)) halvings for any value, so the lanes of a warp stay in step,
+// and the two searches are interleaved: two independent loads in flight per
+// halving.  (The probe in csrc/intersect.cu is an all-pairs compare.)
+__device__ __forceinline__ void lower_bound2(const int* p, int n, int wa,
+                                             int wb, int* ia, int* ib) {
+  if (n <= 0) {
+    *ia = 0;
+    *ib = 0;
+    return;
   }
-  return lo;
+  int a = 0;
+  int b = 0;
+  while (n > 1) {
+    const int half = n >> 1;
+    const int va = p[a + half];
+    const int vb = p[b + half];
+    a = va < wa ? a + half : a;
+    b = vb < wb ? b + half : b;
+    n -= half;
+  }
+  *ia = a + (p[a] < wa ? 1 : 0);
+  *ib = b + (p[b] < wb ? 1 : 0);
 }
 
-// The fused membership test.  Returns true on a hit and sets *safe to the
-// matching slot (the reference's clamped index; only read on a hit).
-// Rows with an empty range (padding: lo == hi == 0) never hit and read
-// nothing.
-__device__ __forceinline__ bool probe(const int* __restrict__ N, int two_m,
-                                      int cand, int lo, int hi, int iters,
-                                      int* safe) {
-  if (lo >= hi) return false;
-  const int w = __ldg(N + cand);
-  const int idx = ranged_lower_bound(N, w, lo, hi, iters);
-  const int s = idx < two_m - 1 ? idx : two_m - 1;
-  *safe = s;
-  return idx < hi && __ldg(N + s) == w;
+// The membership test of two candidates: the slot of each in p[0:n), or -1
+// on a miss.
+__device__ __forceinline__ void find2(const int* p, int n, int wa, int wb,
+                                      int* sa, int* sb) {
+  int ia = 0;
+  int ib = 0;
+  lower_bound2(p, n, wa, wb, &ia, &ib);
+  *sa = (ia < n && p[ia] == wa) ? ia : -1;
+  *sb = (ib < n && p[ib] == wb) ? ib : -1;
+}
+
+// The fixed grid of the persistent kernels: the number of SMs of the
+// current device times the blocks of `kernel` each can hold at `threads`
+// threads and `smem` bytes of dynamic shared memory.  The answer is kept in
+// `cache` (one per launch site), so a launch pays the driver queries once.
+struct GridCache {
+  int device = -1;
+  size_t smem = 0;
+  int blocks = 0;
+};
+
+template <typename Kernel>
+inline int resident_grid(GridCache& cache, Kernel kernel, int threads,
+                         size_t smem) {
+  int device = 0;
+  cudaGetDevice(&device);
+  if (cache.blocks > 0 && cache.device == device && cache.smem == smem) {
+    return cache.blocks;
+  }
+  int sms = 0;
+  int per_sm = 0;
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads,
+                                                smem);
+  cache.device = device;
+  cache.smem = smem;
+  cache.blocks = (sms > 0 ? sms : 1) * (per_sm > 0 ? per_sm : 1);
+  return cache.blocks;
 }
 
 }  // namespace wedge

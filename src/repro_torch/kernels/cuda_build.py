@@ -38,13 +38,13 @@ _LL = ctypes.c_longlong
 #: C signatures: (argtypes, restype) of every exported function
 _SIGNATURES = {
     "support": {
-        "support_accumulate_launch": (
-            [_VOID] * 8 + [_LL, _INT, _INT, _INT, _VOID], _INT),
+        "support_accumulate_launch": ([_VOID] * 9 + [_INT, _INT, _VOID],
+                                      _INT),
         "support_error_string": ([_INT], ctypes.c_char_p),
     },
     "peel": {
-        "peel_decrement_fold_launch": (
-            [_VOID] * 13 + [_LL, _INT, _INT, _INT, _VOID], _INT),
+        "peel_decrement_fold_launch": ([_VOID] * 14 + [_INT, _VOID], _INT),
+        "sublevel_update_launch": ([_VOID] * 11 + [_INT, _INT, _VOID], _INT),
         "peel_error_string": ([_INT], ctypes.c_char_p),
     },
     "intersect": {

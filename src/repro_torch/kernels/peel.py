@@ -1,27 +1,30 @@
-"""K2: one ProcessSubLevel decrement fold over the peel wedge table.
+"""K2: one ProcessSubLevel decrement fold, fed by the CSR and the frontier.
 
 The port of the JAX package's Pallas kernel ``repro/kernels/peel.py:
-peel_decrement_fold``.  At level ``l`` a table row counts when its chunk is
-active, its anchor ``e1`` is on the frontier, the probe ``N[cand] ∈
-N[lo:hi)`` hits, and neither ``e2 = Eid[cand]`` nor ``e3 = Eid[safe]`` is
-processed.  It then adds 1 to ``dec[e2]`` when ``S[e2] > l``, ``e2`` is not
-pinned, and ``e3`` is off the frontier or ``e1 < e3`` (the paper's
-lowest-id tie-break: of two frontier edges sharing a triangle, the lower id
-processes it); ``e3`` symmetrically.
+peel_decrement_fold``.  At level ``l`` every wedge of a frontier edge ``e1 =
+(a, b)`` is probed: a candidate slot ``c`` of the smaller-degree endpoint's
+adjacency (ties: ``a``'s), searched in the other endpoint's adjacency — the
+rows that the JAX package's peel table holds for ``e1``.  A hit whose edges
+``e2 = Eid[c]`` and ``e3 = Eid[hit slot]`` are both unprocessed adds 1 to
+``dec[e2]`` when ``S[e2] > l``, ``e2`` is not pinned, and ``e3`` is off the
+frontier or ``e1 < e3`` (the paper's lowest-id tie-break: of two frontier
+edges sharing a triangle, the lower id processes it); ``e3`` symmetrically.
 
-``peel_decrement_fold`` launches the CUDA kernel ``csrc/peel.cu`` on CUDA
-tensors — over all chunks, with the active mask and the level read on the
-device, so the launch needs no host sync — and runs
-``peel_decrement_fold_ref``, its plain PyTorch version, on CPU tensors and
-only there.  Output of both: ``dec`` (m+1,) int32, read ``dec[:m]``; slot
-``m`` is outside the contract (the port leaves it 0).
+The frontier reaches the fold as a *work list*: one item ``(work_e[t],
+work_j[t])`` per slice of ``WORK_SLICE`` candidates of a frontier edge, so
+an edge with a long scan side is spread over many warps.  ``counts`` is the
+(4,) int32 device buffer ``[n_items, n_front, n_done, 0]``.  The list's
+order does not matter (integer sums are order-free).  ``sublevel_update``
+makes the list on the device; ``frontier_work`` makes it from any frontier
+list with torch ops.
 
-Operands: ``active`` (n_chunks,) bool/uint8; ``l`` (1,) int32 on the device;
-table arrays (n_chunks*chunk,) int32; ``N``/``Eid`` (two_m,) int32;
-``S_ext`` (m+1,) int32; ``processed``/``inCurr``/``pinned`` (m+1,)
-bool/uint8 (``pinned=None``: no schedule edges).  The masks travel as bytes,
-a quarter of the JAX kernel's int32 state traffic; their values, and so the
-result, are the same.
+Both entry points launch their CUDA kernel (``csrc/peel.cu``) on CUDA
+tensors, with the level ``l`` and the item count read on the device, so
+neither needs a host sync; on CPU tensors — and only there — they run their
+plain PyTorch versions ``peel_decrement_fold_ref`` / ``sublevel_update_ref``.
+Output of the fold: ``dec`` (m+1,) int32, read ``dec[:m]``; ``dec[m]`` stays
+0.  Masks (``processed``/``inCurr``/``pinned``, (m+1,)) travel as bytes
+(bool or uint8); ``pinned=None`` means no schedule edges.
 """
 
 from __future__ import annotations
@@ -30,46 +33,107 @@ import torch
 
 from repro_torch.kernels import cuda_build, wedge_common
 
-#: launches of the CUDA kernel / calls of the plain version
+#: launches of the CUDA kernels / calls of their plain versions: the fold
+#: (K2) and the sub-level update
 COUNTS = cuda_build.LaunchCounts()
+UPDATE_COUNTS = cuda_build.LaunchCounts()
+
+#: candidates of one work item (one warp of K2 takes one item; two per lane)
+WORK_SLICE = 64
 
 
-def peel_decrement_fold(active, l, e1, cand, lo, hi, N, Eid, S_ext,
-                        processed, inCurr, pinned=None, *, chunk: int,
-                        n_chunks: int, iters: int, m: int):
-    """Decrement vector of one sub-level at level ``l`` → (m+1,) int32."""
-    dev = e1.device
+def work_capacity(m: int, table_size: int) -> int:
+    """Work items the largest frontier can make: every edge's
+    ``ceil(deg_scan / WORK_SLICE)``, at most ``m + table_size / WORK_SLICE``
+    (``table_size``: the peel table's rows, the sum of the scan sides)."""
+    return m + -(-table_size // WORK_SLICE) + 1
+
+
+def _scan_probe(e, u, v, Es):
+    """Per edge: scan range start and length, probe range start and end
+    (the peel table's degree rule)."""
+    e = e.long()
+    a = u[e].long()
+    b = v[e].long()
+    a0, a1, b0, b1 = Es[a], Es[a + 1], Es[b], Es[b + 1]
+    swap = (a1 - a0) > (b1 - b0)
+    s0 = torch.where(swap, b0, a0)
+    n_scan = torch.where(swap, b1 - b0, a1 - a0)
+    lo = torch.where(swap, a0, b0)
+    hi = torch.where(swap, a1, b1)
+    return s0, n_scan, lo, hi
+
+
+def frontier_work(front, u, v, Es, work_e, work_j, counts) -> int:
+    """Fill the work list of the frontier edges ``front`` (any order).
+
+    Writes ``work_e``/``work_j`` and ``counts = [n_items, len(front), ...]``
+    in place (``counts[2:]`` are left as they are) and returns ``n_items``.
+    Plain torch ops; the host reads the item count once.
+    """
+    _, n_scan, _, _ = _scan_probe(front, u, v, Es)
+    n_items_e = ((n_scan + WORK_SLICE - 1) // WORK_SLICE).long()
+    n = int(n_items_e.sum())
+    if n > work_e.shape[0]:
+        raise ValueError(f"{n} work items exceed the list's {work_e.shape[0]}")
+    first = torch.cumsum(n_items_e, 0) - n_items_e
+    work_e[:n] = torch.repeat_interleave(front, n_items_e)
+    work_j[:n] = (torch.arange(n, device=front.device)
+                  - torch.repeat_interleave(first, n_items_e)).to(torch.int32)
+    counts[0] = n
+    counts[1] = front.shape[0]
+    return n
+
+
+def peel_decrement_fold(work_e, work_j, counts, l, u, v, Es, N, Eid, S_ext,
+                        processed, inCurr, pinned=None, *, m: int,
+                        dec=None):
+    """Decrement vector of one sub-level at level ``l`` → (m+1,) int32.
+
+    ``work_e``/``work_j``/``counts``: the frontier's work list (module
+    docstring); ``l`` (1,) int32; ``u``/``v`` (>= m,) edge endpoints;
+    ``Es`` CSR offsets; ``N``/``Eid`` (two_m,); ``S_ext`` (m+1,) int32.
+    ``dec``: an all-zero (m+1,) int32 buffer to fold into (allocated when
+    None).
+    """
+    dev = S_ext.device
     if dev.type == "cpu":
         return peel_decrement_fold_ref(
-            active, l, e1, cand, lo, hi, N, Eid, S_ext, processed, inCurr,
-            pinned, chunk=chunk, n_chunks=n_chunks, iters=iters, m=m)
+            work_e, work_j, counts, l, u, v, Es, N, Eid, S_ext, processed,
+            inCurr, pinned, m=m, dec=dec)
     if dev.type != "cuda":
         raise ValueError(f"peel_decrement_fold: unsupported device {dev}")
-    rows = n_chunks * chunk
-    for name, t in (("e1", e1), ("cand", cand), ("lo", lo), ("hi", hi)):
-        cuda_build.check_int32(name, t, dev, (rows,))
+    cap = work_e.shape[0]
+    cuda_build.check_int32("work_e", work_e, dev, (cap,))
+    cuda_build.check_int32("work_j", work_j, dev, (cap,))
+    cuda_build.check_int32("counts", counts, dev, (4,))
+    cuda_build.check_int32("l", l, dev, (1,))
+    cuda_build.check_int32("u", u, dev)
+    cuda_build.check_int32("v", v, dev, tuple(u.shape))
+    cuda_build.check_int32("Es", Es, dev)
     two_m = N.shape[0]
     cuda_build.check_int32("N", N, dev, (two_m,))
     cuda_build.check_int32("Eid", Eid, dev, (two_m,))
     cuda_build.check_int32("S_ext", S_ext, dev, (m + 1,))
-    cuda_build.check_int32("l", l, dev, (1,))
-    cuda_build.check_mask("active", active, dev, (n_chunks,))
     for name, t in (("processed", processed), ("inCurr", inCurr)):
         cuda_build.check_mask(name, t, dev, (m + 1,))
     if pinned is not None:
         cuda_build.check_mask("pinned", pinned, dev, (m + 1,))
-    dec = torch.zeros(m + 1, dtype=torch.int32, device=dev)
-    if rows == 0 or two_m == 0:
+    if dec is None:
+        dec = torch.zeros(m + 1, dtype=torch.int32, device=dev)
+    cuda_build.check_int32("dec", dec, dev, (m + 1,))
+    if two_m == 0 or cap == 0:
         return dec
     lib = cuda_build.library("peel")
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         code = lib.peel_decrement_fold_launch(
-            active.data_ptr(), l.data_ptr(), e1.data_ptr(), cand.data_ptr(),
-            lo.data_ptr(), hi.data_ptr(), N.data_ptr(), Eid.data_ptr(),
-            S_ext.data_ptr(), processed.data_ptr(), inCurr.data_ptr(),
+            work_e.data_ptr(), work_j.data_ptr(), counts.data_ptr(),
+            l.data_ptr(), u.data_ptr(), v.data_ptr(), Es.data_ptr(),
+            N.data_ptr(), Eid.data_ptr(), S_ext.data_ptr(),
+            processed.data_ptr(), inCurr.data_ptr(),
             None if pinned is None else pinned.data_ptr(), dec.data_ptr(),
-            n_chunks, chunk, iters, two_m, stream)
+            WORK_SLICE, stream)
     cuda_build.check_launch(lib, "peel", code)
     COUNTS.kernel += 1
     return dec
@@ -77,7 +141,7 @@ def peel_decrement_fold(active, l, e1, cand, lo, hi, N, Eid, S_ext,
 
 def decrement_rows(dec, e1, cand, lo, hi, N, Eid, S_ext, processed, inCurr,
                    pinned, l, *, iters: int) -> None:
-    """Fold the decrements of a batch of table rows into ``dec`` in place.
+    """Fold the decrements of a batch of wedge rows into ``dec`` in place.
 
     The row arithmetic of the JAX package's ``chunk_contrib``
     (``core/pkt.py``) and of its Pallas kernel body, in torch ops: shared by
@@ -97,28 +161,111 @@ def decrement_rows(dec, e1, cand, lo, hi, N, Eid, S_ext, processed, inCurr,
     dec.index_add_(0, e3, dec3.to(torch.int32))
 
 
-def peel_decrement_fold_ref(active, l, e1, cand, lo, hi, N, Eid, S_ext,
-                            processed, inCurr, pinned=None, *, chunk: int,
-                            n_chunks: int, iters: int, m: int):
+def peel_decrement_fold_ref(work_e, work_j, counts, l, u, v, Es, N, Eid,
+                            S_ext, processed, inCurr, pinned=None, *, m: int,
+                            dec=None):
     """Plain PyTorch version of ``peel_decrement_fold`` (same contract).
 
-    Walks the table in slices of ``wedge_common.SLICE_ROWS`` rows and, like
-    the kernel, probes only the rows whose chunk is active and whose anchor
-    is on the frontier; the others cannot count.
+    Expands the work items into their wedge rows with torch ops, in slices
+    of ``wedge_common.SLICE_ROWS`` rows, and folds them with
+    ``decrement_rows``; the search runs enough halvings for the longest
+    probe list, so it finds the exact lower bound.
     """
     COUNTS.plain += 1
-    dev = e1.device
-    dec = torch.zeros(m + 1, dtype=torch.int32, device=dev)
-    if N.shape[0] == 0:
+    dev = S_ext.device
+    if dec is None:
+        dec = torch.zeros(m + 1, dtype=torch.int32, device=dev)
+    n = int(counts[0])
+    if n == 0 or N.shape[0] == 0:
         return dec
-    act = active.bool()
+    e = work_e[:n].long()
+    s0, n_scan, lo, hi = _scan_probe(e, u, v, Es)
+    start = s0 + work_j[:n] * WORK_SLICE
+    n_cand = torch.clamp(n_scan - work_j[:n] * WORK_SLICE, max=WORK_SLICE)
+    iters = max(1, int((hi - lo).max()).bit_length())
+    ends = torch.cumsum(n_cand.long(), 0)
     proc = processed.bool()
     curr = inCurr.bool()
     pin = None if pinned is None else pinned.bool()
     lv = l.reshape(())
-    for start, stop in wedge_common.row_slices(n_chunks * chunk):
-        rows = torch.arange(start, stop, device=dev, dtype=torch.int64)
-        rows = rows[act[rows // chunk] & curr[e1[start:stop]]]
-        decrement_rows(dec, e1[rows], cand[rows], lo[rows], hi[rows], N, Eid,
-                       S_ext, proc, curr, pin, lv, iters=iters)
+    for r0, r1 in wedge_common.row_slices(int(ends[-1])):
+        rows = torch.arange(r0, r1, device=dev, dtype=torch.int64)
+        item = torch.searchsorted(ends, rows, right=True)
+        cand = (start[item] + (rows - (ends[item] - n_cand[item]))).to(
+            torch.int32)
+        decrement_rows(dec, e[item], cand, lo[item], hi[item], N, Eid, S_ext,
+                       proc, curr, pin, lv, iters=iters)
     return dec
+
+
+def apply_decrements(dec, S_ext, processed, inCurr, l, m: int):
+    """One sub-level's state update in torch ops, in place; returns the next
+    frontier mask.
+
+    ``S ← where(~processed & ~inCurr & dec > 0, max(S − dec, l), S)``, then
+    ``processed |= inCurr`` and ``inCurr' = ~processed & (S == l)`` with
+    slot ``m`` off — the body of the JAX package's sub-level.
+    """
+    S_ext.copy_(torch.where(~processed & ~inCurr & (dec > 0),
+                            torch.maximum(S_ext - dec, l), S_ext))
+    processed |= inCurr
+    nxt = ~processed & (S_ext == l)
+    nxt[m] = False
+    return nxt
+
+
+def sublevel_update(dec, S_ext, processed, inCurr, l, u, v, Es, work_e,
+                    work_j, counts, *, m: int) -> None:
+    """Fused sub-level update, in place (see ``apply_decrements``).
+
+    Also writes the next frontier's work list into ``work_e``/``work_j``,
+    ``counts = [n_items, n_front, n_done, 0]`` (``n_done``: processed slots
+    of the m+1) and zeroes ``dec``.  With ``dec`` all zero and ``inCurr``
+    empty it forms the first frontier of level ``l``.  ``processed`` and
+    ``inCurr`` are bool.
+    """
+    dev = S_ext.device
+    if dev.type == "cpu":
+        sublevel_update_ref(dec, S_ext, processed, inCurr, l, u, v, Es,
+                            work_e, work_j, counts, m=m)
+        return
+    if dev.type != "cuda":
+        raise ValueError(f"sublevel_update: unsupported device {dev}")
+    for name, t in (("dec", dec), ("S_ext", S_ext)):
+        cuda_build.check_int32(name, t, dev, (m + 1,))
+    for name, t in (("processed", processed), ("inCurr", inCurr)):
+        cuda_build.check_mask(name, t, dev, (m + 1,))
+    cuda_build.check_int32("l", l, dev, (1,))
+    cuda_build.check_int32("u", u, dev)
+    cuda_build.check_int32("v", v, dev, tuple(u.shape))
+    if u.shape[0] < m:
+        raise ValueError(f"u has {u.shape[0]} edges, expected >= {m}")
+    cuda_build.check_int32("Es", Es, dev)
+    cap = work_e.shape[0]
+    cuda_build.check_int32("work_e", work_e, dev, (cap,))
+    cuda_build.check_int32("work_j", work_j, dev, (cap,))
+    cuda_build.check_int32("counts", counts, dev, (4,))
+    lib = cuda_build.library("peel")
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        code = lib.sublevel_update_launch(
+            dec.data_ptr(), S_ext.data_ptr(), processed.data_ptr(),
+            inCurr.data_ptr(), l.data_ptr(), u.data_ptr(), v.data_ptr(),
+            Es.data_ptr(), work_e.data_ptr(), work_j.data_ptr(),
+            counts.data_ptr(), m, WORK_SLICE, stream)
+    cuda_build.check_launch(lib, "peel", code)
+    UPDATE_COUNTS.kernel += 1
+
+
+def sublevel_update_ref(dec, S_ext, processed, inCurr, l, u, v, Es, work_e,
+                        work_j, counts, *, m: int) -> None:
+    """Plain PyTorch version of ``sublevel_update`` (same contract); the
+    work list comes out in ascending edge order."""
+    UPDATE_COUNTS.plain += 1
+    nxt = apply_decrements(dec, S_ext, processed, inCurr, l.reshape(()), m)
+    inCurr.copy_(nxt)
+    dec.zero_()
+    front = torch.nonzero(nxt)[:, 0].to(torch.int32)
+    frontier_work(front, u, v, Es, work_e, work_j, counts)
+    counts[2] = processed.sum()
+    counts[3] = 0

@@ -1,23 +1,22 @@
-"""K1: the AM4 support phase (oriented triangle counting) over a wedge table.
+"""K1: the AM4 support phase (oriented triangle counting), fed by the CSR.
 
 The port of the JAX package's Pallas kernel ``repro/kernels/support.py:
-support_accumulate``.  One table row is one oriented wedge ``(u→v, w ∈
-N⁺(v))``: the candidate ``w = N[cand]`` is searched in ``N⁺(u) = N[lo:hi)``
-and each hit — one triangle, found exactly once under the orientation —
-adds 1 to the support of its three edges: the anchor ``e1``, ``Eid[cand]``
-and ``Eid[safe]``.  Each chunk of the table also reports its triangle count.
+support_accumulate``.  The JAX kernel streams the oriented wedge table: one
+row per edge ``(u, v)`` and candidate ``w ∈ N⁺(v)``, searched in ``N⁺(u)``.
+Each hit — one triangle, found exactly once under the orientation — adds 1
+to the support of its three edges: the edge itself, ``Eid[cand]`` and
+``Eid[hit slot]``; each table chunk also reports its triangle count.  Here
+the rows are read from the CSR (``N⁺(x) = N[Eo[x]:Es[x+1])``) and the table
+never exists: row ``j`` of edge ``e`` is table row ``off[e] + j``, with
+``off`` the prefix of ``|N⁺(v)|`` (``support_offsets``).
 
 ``support_accumulate`` launches the CUDA kernel ``csrc/support.cu`` on CUDA
 tensors and runs ``support_accumulate_ref``, its plain PyTorch version, on
 CPU tensors — and only there.  Output contract of both: ``S_ext`` (m+1,)
 int32 with the supports in ``S_ext[:m]``; slot ``m`` is outside the
 contract (the JAX kernel scatters misses there, the port writes nothing to
-it); ``tri`` (n_chunks,) int32 triangle partials that sum to
-``S_ext[:m].sum() / 3``.
-
-Bound at the main path's shape (Graph500 scale 17): streaming the 380 M real
-table rows of 16 bytes once, 6.1 GB, about 1.8 ms at 3.35 TB/s — see the
-kernel's source note and PERF.md.
+it); ``tri`` (n_chunks,) int32 triangle partials of the reference's table
+chunks of ``chunk`` rows, which sum to ``S_ext[:m].sum() / 3``.
 """
 
 from __future__ import annotations
@@ -30,66 +29,88 @@ from repro_torch.kernels import cuda_build, wedge_common
 COUNTS = cuda_build.LaunchCounts()
 
 
-def support_accumulate(e1, cand, lo, hi, N, Eid, *, chunk: int,
-                       n_chunks: int, iters: int, m: int):
-    """Fused support fold and per-chunk triangle partials for a full table.
+def support_offsets(u, v, Es, Eo):
+    """(m+1,) int32 table offsets: edge ``e``'s rows are ``[off[e],
+    off[e+1])``, one per slot of ``N⁺(v[e])``."""
+    v = v.long()
+    cnt = Es[v + 1] - Eo[v]
+    off = torch.zeros(cnt.shape[0] + 1, dtype=torch.int32, device=cnt.device)
+    torch.cumsum(cnt, 0, dtype=torch.int32, out=off[1:])
+    return off
 
-    Table arrays are ``(n_chunks*chunk,)`` int32, padded per
-    ``wedge_common.pad_chunked``; ``N``/``Eid`` are ``(two_m,)`` int32.
-    Returns ``(S_ext, tri)`` as described in the module docstring.  CUDA
-    tensors launch the kernel; CPU tensors run the plain version.
+
+def support_accumulate(u, v, Es, Eo, N, Eid, *, m: int, chunk: int,
+                       n_chunks: int):
+    """Fused support fold and per-chunk triangle partials → ``(S_ext, tri)``.
+
+    ``u``/``v`` (m,) int32 edge endpoints (``u < v``); ``Es`` (n+1,) and
+    ``Eo`` (n,) CSR offsets; ``N``/``Eid`` (two_m,) int32.  ``chunk`` and
+    ``n_chunks`` name the reference table's chunks (``n_chunks * chunk``
+    rows at least).  CUDA tensors launch the kernel; CPU tensors run the
+    plain version.
     """
-    dev = e1.device
+    dev = u.device
     if dev.type == "cpu":
-        return support_accumulate_ref(e1, cand, lo, hi, N, Eid, chunk=chunk,
-                                      n_chunks=n_chunks, iters=iters, m=m)
+        return support_accumulate_ref(u, v, Es, Eo, N, Eid, m=m, chunk=chunk,
+                                      n_chunks=n_chunks)
     if dev.type != "cuda":
         raise ValueError(f"support_accumulate: unsupported device {dev}")
-    rows = n_chunks * chunk
-    for name, t in (("e1", e1), ("cand", cand), ("lo", lo), ("hi", hi)):
-        cuda_build.check_int32(name, t, dev, (rows,))
+    cuda_build.check_int32("u", u, dev, (m,))
+    cuda_build.check_int32("v", v, dev, (m,))
+    cuda_build.check_int32("Es", Es, dev)
+    cuda_build.check_int32("Eo", Eo, dev, (Es.shape[0] - 1,))
     two_m = N.shape[0]
     cuda_build.check_int32("N", N, dev, (two_m,))
     cuda_build.check_int32("Eid", Eid, dev, (two_m,))
+    if chunk < 1 or n_chunks < 1:
+        raise ValueError(f"chunk {chunk} / n_chunks {n_chunks} must be >= 1")
     S = torch.zeros(m + 1, dtype=torch.int32, device=dev)
     tri = torch.zeros(n_chunks, dtype=torch.int32, device=dev)
-    if rows == 0 or two_m == 0:
+    if m == 0 or two_m == 0:
         return S, tri
+    off = support_offsets(u, v, Es, Eo)
     lib = cuda_build.library("support")
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         code = lib.support_accumulate_launch(
-            e1.data_ptr(), cand.data_ptr(), lo.data_ptr(), hi.data_ptr(),
-            N.data_ptr(), Eid.data_ptr(), S.data_ptr(), tri.data_ptr(),
-            rows, chunk, iters, two_m, stream)
+            u.data_ptr(), v.data_ptr(), Es.data_ptr(), Eo.data_ptr(),
+            off.data_ptr(), N.data_ptr(), Eid.data_ptr(), S.data_ptr(),
+            tri.data_ptr(), m, chunk, stream)
     cuda_build.check_launch(lib, "support", code)
     COUNTS.kernel += 1
     return S, tri
 
 
-def support_accumulate_ref(e1, cand, lo, hi, N, Eid, *, chunk: int,
-                           n_chunks: int, iters: int, m: int):
+def support_accumulate_ref(u, v, Es, Eo, N, Eid, *, m: int, chunk: int,
+                           n_chunks: int):
     """Plain PyTorch version of ``support_accumulate`` (same contract).
 
-    Walks the table in slices of ``wedge_common.SLICE_ROWS`` rows: probe,
-    then integer scatter-adds of the hits into ``S_ext`` and ``tri``.
+    Expands the rows of all edges with torch ops, in slices of
+    ``wedge_common.SLICE_ROWS`` rows: the owning edge by a search of the
+    offsets, the candidate and probe range from the CSR, then the probe and
+    integer scatter-adds of the hits into ``S_ext`` and ``tri``.  The search
+    runs enough halvings for the longest ``N⁺`` list, so it finds the exact
+    lower bound.
     """
     COUNTS.plain += 1
-    dev = e1.device
+    dev = u.device
     S = torch.zeros(m + 1, dtype=torch.int32, device=dev)
     tri = torch.zeros(n_chunks, dtype=torch.int32, device=dev)
-    if N.shape[0] == 0:
+    if m == 0 or N.shape[0] == 0:
         return S, tri
-    for start, stop in wedge_common.row_slices(n_chunks * chunk):
-        c = cand[start:stop]
-        hit, safe = wedge_common.probe(N, c, lo[start:stop], hi[start:stop],
-                                       iters=iters)
-        inc = hit.to(torch.int32)
-        S.index_add_(0, e1[start:stop], inc)
-        S.index_add_(0, Eid[c], inc)
-        S.index_add_(0, Eid[safe], inc)
-        rows = torch.arange(start, stop, device=dev, dtype=torch.int64)
-        tri.index_add_(0, rows // chunk, inc)
-    # misses added 0 everywhere, padding rows 0 to slot m: S[m] == 0, as the
-    # kernel leaves it
+    off = support_offsets(u, v, Es, Eo)
+    iters = max(1, int((Es[1:Eo.shape[0] + 1] - Eo).max()).bit_length())
+    for start, stop in wedge_common.row_slices(int(off[m])):
+        rows = torch.arange(start, stop, dtype=torch.int32, device=dev)
+        e = torch.searchsorted(off[1:], rows, right=True)
+        j = rows - off[e]
+        cand = Eo[v[e].long()] + j
+        a = u[e].long()
+        hit, safe = wedge_common.probe(N, cand, Eo[a], Es[a + 1], iters=iters)
+        idx = torch.nonzero(hit)[:, 0]
+        ones = torch.ones(idx.shape[0], dtype=torch.int32, device=dev)
+        S.index_add_(0, e[idx], ones)
+        S.index_add_(0, Eid[cand[idx]], ones)
+        S.index_add_(0, Eid[safe[idx]], ones)
+        tri.index_add_(0, rows[idx].long() // chunk, ones)
     return S, tri

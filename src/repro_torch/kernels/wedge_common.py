@@ -1,10 +1,11 @@
-"""Shared wedge-table machinery for the port's truss kernels.
+"""Shared wedge-table machinery for the port's torch executors.
 
-Both hot-phase kernels walk the same flat data structure: a *wedge table* —
-one row per (anchor edge, candidate adjacency slot) pair, with a probe range
-``[lo, hi)`` into the CSR adjacency array ``N``.  The support kernel
-(``kernels/support.py``) walks the oriented AM4 table, the peel kernel
-(``kernels/peel.py``) the full-adjacency ProcessSubLevel table.  This module
+The JAX package's hot-phase kernels walk a flat *wedge table* — one row per
+(anchor edge, candidate adjacency slot) pair, with a probe range ``[lo,
+hi)`` into the CSR adjacency array ``N``: the oriented AM4 table for the
+support phase, the full-adjacency ProcessSubLevel table for the peel.  The
+port's torch executors keep those tables (they are the parity oracle); the
+CUDA kernels read the same wedges from the CSR and build none.  This module
 is the single home of the table math:
 
   * **chunk layout** — tables are cut into fixed-size chunks (the unit of
@@ -16,8 +17,9 @@ is the single home of the table math:
   * **the search primitive** — ``ranged_searchsorted`` is the branch-free
     lower-bound binary search both phases use as their membership test, and
     ``probe`` fuses it with the candidate gather and hit predicate
-    (``w ∈ N[lo:hi)``).  These torch versions are the plain executors; the
-    CUDA kernels run the same search as one ``__device__`` function in
+    (``w ∈ N[lo:hi)``).  These torch versions serve the torch executors
+    and the kernels' plain versions; the CUDA kernels search to the exact
+    lower bound, which the ``iters`` bound always reaches, in
     ``csrc/wedge_common.cuh``.
 
 The chunk policy is the formula fallback of the JAX package's

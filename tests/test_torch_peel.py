@@ -1,10 +1,14 @@
-"""Port parity: K2's plain version vs the Pallas peel kernel, and edge cases.
+"""Port parity: K2's and the sub-level update's plain versions vs the JAX
+package, and edge cases.
 
 States are taken mid-run from the JAX reference's own peel (its compaction
 early exit stops the level loop at a level boundary), then fed with the
 same numpy values to ``repro.kernels.peel.peel_decrement_fold`` in
-interpret mode and to ``repro_torch.kernels.peel.peel_decrement_fold_ref``.
-Comparisons are exact on ``[:m]``.
+interpret mode (over its table, with its own active-chunk mask) and to
+``repro_torch.kernels.peel.peel_decrement_fold`` on CPU tensors (its plain
+version, over the frontier's work list and the CSR).  The update is held
+against the reference's sub-level formula on the same states.  Comparisons
+are exact on ``[:m]``.
 """
 
 import importlib
@@ -67,9 +71,31 @@ def _frontier(S_ext, proc, m):
     return l, curr
 
 
-def _both(g, tabs, chunk, n_chunks, iters, S_ext, proc, curr, l, active,
-          pinned):
+def _work_list(g, curr, rng=None):
+    """The port's work list for the frontier ``curr`` (shuffled with
+    ``rng``), as CPU tensors ``(work_e, work_j, counts)``."""
     m = g.m
+    front = np.nonzero(curr[:m])[0].astype(np.int32)
+    if rng is not None:
+        front = rng.permutation(front)
+    u, v, Es = (torch.tensor(a) for a in (g.El[:, 0], g.El[:, 1], g.Es))
+    cap = port_kernel.work_capacity(m, int(np.minimum(
+        g.degrees[g.El[:, 0]], g.degrees[g.El[:, 1]]).sum()))
+    work_e = torch.full((cap,), -1, dtype=torch.int32)
+    work_j = torch.full((cap,), -1, dtype=torch.int32)
+    counts = torch.zeros(4, dtype=torch.int32)
+    port_kernel.frontier_work(torch.tensor(front), u, v, Es, work_e, work_j,
+                              counts)
+    return work_e, work_j, counts
+
+
+def _both(g, tabs, chunk, n_chunks, iters, S_ext, proc, curr, l, pinned,
+          rng=None):
+    """K2 against the reference at one state; ``rng`` shuffles the port's
+    frontier list."""
+    m = g.m
+    active = np.asarray(ref_pkt._active_chunk_mask(
+        jnp.asarray(curr), tabs, m, n_chunks))
     want = ref_fold(
         jnp.asarray(active.astype(np.int32)), jnp.full((1,), l, jnp.int32),
         tabs.e1, tabs.cand_slot, tabs.lo, tabs.hi, jnp.asarray(g.N),
@@ -79,12 +105,11 @@ def _both(g, tabs, chunk, n_chunks, iters, S_ext, proc, curr, l, active,
                      else pinned).astype(np.int32)),
         chunk=chunk, n_chunks=n_chunks, iters=iters, m=m, interpret=True)
     t = torch.tensor
+    work_e, work_j, counts = _work_list(g, curr, rng)
     got = port_kernel.peel_decrement_fold(
-        t(active), t(np.array([l], np.int32)), t(np.asarray(tabs.e1)),
-        t(np.asarray(tabs.cand_slot)), t(np.asarray(tabs.lo)),
-        t(np.asarray(tabs.hi)), t(g.N), t(g.Eid), t(S_ext), t(proc),
-        t(curr), None if pinned is None else t(pinned), chunk=chunk,
-        n_chunks=n_chunks, iters=iters, m=m)
+        work_e, work_j, counts, t(np.array([l], np.int32)), t(g.El[:, 0]),
+        t(g.El[:, 1]), t(g.Es), t(g.N), t(g.Eid), t(S_ext), t(proc),
+        t(curr), None if pinned is None else t(pinned), m=m)
     assert got.dtype == torch.int32 and got.shape == (m + 1,)
     assert np.array_equal(got.numpy()[:m], np.asarray(want)[:m])
     assert int(got[m]) == 0
@@ -98,8 +123,15 @@ CASES = {
 }
 
 
+@pytest.mark.parametrize("work_slice", [None, 3])
 @pytest.mark.parametrize("name", sorted(CASES))
-def test_plain_k2_matches_pallas_on_reference_states(name):
+def test_plain_k2_matches_pallas_on_reference_states(name, work_slice,
+                                                     monkeypatch):
+    """K2's plain version equals the Pallas kernel; ``work_slice=3`` splits
+    every edge with more than 3 candidates over several work items, as the
+    hubs of a large graph are split."""
+    if work_slice is not None:
+        monkeypatch.setattr(port_kernel, "WORK_SLICE", work_slice)
     E, chunk = CASES[name]
     g, tabs, chunk, n_chunks, iters, states = _reference_states(E, chunk)
     m = g.m
@@ -109,13 +141,11 @@ def test_plain_k2_matches_pallas_on_reference_states(name):
         if proc[:m].all():
             continue
         l, curr = _frontier(S_ext, proc, m)
-        active = np.asarray(ref_pkt._active_chunk_mask(
-            jnp.asarray(curr), tabs, m, n_chunks))
         pinned = np.append(~proc[:m] & (rng.random(m) < 0.3), False)
-        for act, pin in ((active, None), (active, pinned),
-                         (rng.random(n_chunks) < 0.5, None)):
+        # the frontier in edge order, with pinned edges, and shuffled
+        for pin, order in ((None, None), (pinned, None), (None, rng)):
             dec = _both(g, tabs, chunk, n_chunks, iters, S_ext, proc, curr,
-                        l, act, pin)
+                        l, pin, order)
             checked += 1
         # the next sub-level of the same level, from the reference update
         upd = ~proc & ~curr & (dec > 0)
@@ -124,10 +154,7 @@ def test_plain_k2_matches_pallas_on_reference_states(name):
         curr2 = ~proc2 & (S2 == l)
         curr2[m] = False
         if curr2.any():
-            act2 = np.asarray(ref_pkt._active_chunk_mask(
-                jnp.asarray(curr2), tabs, m, n_chunks))
-            _both(g, tabs, chunk, n_chunks, iters, S2, proc2, curr2, l, act2,
-                  None)
+            _both(g, tabs, chunk, n_chunks, iters, S2, proc2, curr2, l, None)
             checked += 1
     assert checked >= 6
 
@@ -138,11 +165,75 @@ def test_plain_k2_counts_plain_calls_only():
     S_ext, proc = states[0]
     l, curr = _frontier(S_ext, proc, g.m)
     before = port_kernel.COUNTS.as_dict()
-    _both(g, tabs, chunk, n_chunks, iters, S_ext, proc, curr, l,
-          np.ones(n_chunks, bool), None)
+    _both(g, tabs, chunk, n_chunks, iters, S_ext, proc, curr, l, None)
     after = port_kernel.COUNTS.as_dict()
     assert after["plain"] == before["plain"] + 1
     assert after["kernel"] == before["kernel"]
+
+
+@pytest.mark.parametrize("name", sorted(CASES))
+def test_plain_sublevel_update_matches_reference_formula(name, monkeypatch):
+    """sublevel_update's plain version applies the reference's sub-level
+    body (src/repro/core/pkt.py, ``sublevel``) on the reference's own
+    states, makes the next frontier's work list and counts, zeroes dec, and
+    with a zero dec and an empty frontier forms a level's first frontier."""
+    monkeypatch.setattr(port_kernel, "WORK_SLICE", 4)
+    E, chunk = CASES[name]
+    g, tabs, chunk, n_chunks, iters, states = _reference_states(E, chunk)
+    m = g.m
+    t = torch.tensor
+    u, v, Es = t(g.El[:, 0]), t(g.El[:, 1]), t(g.Es)
+    scan = np.minimum(g.degrees[g.El[:, 0]], g.degrees[g.El[:, 1]])
+    cap = port_kernel.work_capacity(m, int(scan.sum()))
+
+    def update(dec, S_ext, proc, curr, l):
+        state = [t(a.copy()) for a in (dec, S_ext, proc, curr)]
+        work_e = torch.full((cap,), -1, dtype=torch.int32)
+        work_j = torch.full((cap,), -1, dtype=torch.int32)
+        counts = torch.full((4,), -1, dtype=torch.int32)
+        port_kernel.sublevel_update(*state, t(np.array([l], np.int32)), u, v,
+                                    Es, work_e, work_j, counts, m=m)
+        n_items, n_front, n_done, zero = counts.tolist()
+        nxt = state[3].numpy()
+        assert (n_front, n_done, zero) == (int(nxt.sum()),
+                                           int(state[2].sum()), 0)
+        assert not state[0].any()  # dec is zeroed for the next fold
+        got = sorted(zip(work_e[:n_items].tolist(), work_j[:n_items].tolist()))
+        want = sorted((int(e), j) for e in np.nonzero(nxt)[0]
+                      for j in range(-(-int(scan[e]) // 4)))
+        assert got == want
+        return state[1].numpy(), state[2].numpy(), nxt
+
+    checked = 0
+    for S_ext, proc in states:
+        if proc[:m].all():
+            continue
+        l, curr = _frontier(S_ext, proc, m)
+        # a level's start: zero dec, empty frontier
+        zero = np.zeros(m + 1, np.int32)
+        S1, p1, c1 = update(zero, S_ext, proc, np.zeros(m + 1, bool), l)
+        assert np.array_equal(S1, S_ext) and np.array_equal(p1, proc)
+        assert np.array_equal(c1, curr)
+        # the level's sub-levels (up to three), against the reference's
+        # formula
+        for _ in range(3):
+            dec = _both(g, tabs, chunk, n_chunks, iters, S_ext, proc, curr,
+                        l, None)
+            upd = ~proc & ~curr & (dec > 0)
+            S2 = np.where(upd, np.maximum(S_ext - dec, l),
+                          S_ext).astype(np.int32)
+            proc2 = proc | curr
+            curr2 = ~proc2 & (S2 == l)
+            curr2[m] = False
+            S3, p3, c3 = update(dec, S_ext, proc, curr, l)
+            assert np.array_equal(S3, S2)
+            assert np.array_equal(p3, proc2)
+            assert np.array_equal(c3, curr2)
+            checked += 1
+            S_ext, proc, curr = S2, proc2, curr2
+            if not curr.any():
+                break
+    assert checked >= 3
 
 
 def _star(k):

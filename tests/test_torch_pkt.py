@@ -143,3 +143,71 @@ def test_invalid_modes_rejected():
     # the alias wins over mode, as in the reference
     got = port_pkt.pkt(g, mode="bogus", peel_mode="dense", device="cpu")
     _assert_same(got, ref_pkt.pkt(ref_build(GRAPHS["er"])))
+
+
+def _refuse_tables(monkeypatch):
+    """Make every wedge-table builder of the port raise."""
+    sup = importlib.import_module("repro_torch.core.support")
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("the kernel path built a wedge table")
+
+    for name in ("_build_support_table_dev", "_build_peel_table_dev",
+                 "build_support_table", "build_peel_table"):
+        monkeypatch.setattr(sup, name, refuse)
+
+
+@pytest.mark.parametrize("name", sorted(GRAPHS))
+@pytest.mark.parametrize("compaction", sorted(COMPACTION))
+@pytest.mark.parametrize("table_mode", ["device", "numpy"])
+def test_kernel_path_builds_no_table(name, compaction, table_mode,
+                                     monkeypatch):
+    """The kernel executors read the CSR: with every table builder made to
+    raise, pkt, peel_live_subset and the engine still equal the reference."""
+    from repro_torch.serve.truss_engine import TrussEngine
+
+    _refuse_tables(monkeypatch)
+    want = _reference(name, compaction)
+    got = port_pkt.pkt(port_build(GRAPHS[name]), mode="kernel",
+                       support_mode="kernel", table_mode=table_mode,
+                       chunk=16, device="cpu", **COMPACTION[compaction])
+    _assert_same(got, want)
+    g = ref_build(GRAPHS[name])
+    rng = np.random.default_rng(7)
+    live = np.sort(rng.choice(g.m, size=g.m // 2, replace=False))
+    pinned = rng.random(live.shape[0]) < 0.25
+    S0 = want.support
+    assert np.array_equal(
+        port_pkt.peel_live_subset(g.El, live, S0[live], pinned, mode="kernel",
+                                  table_mode=table_mode, device="cpu",
+                                  **COMPACTION[compaction]),
+        ref_pkt.peel_live_subset(g.El, live, S0[live], pinned,
+                                 mode="chunked", **COMPACTION[compaction]))
+    eng = TrussEngine(table_mode=table_mode, device="cpu")
+    ticket = eng.submit(GRAPHS[name])
+    eng.flush()
+    assert np.array_equal(eng.result(ticket),
+                          ref_pkt.truss_pkt(GRAPHS[name]))
+
+
+@pytest.mark.parametrize("phase", ["support", "peel"])
+@pytest.mark.parametrize("mode", ["kernel", "chunked"])
+def test_table_ceiling_refuses_as_the_reference(mode, phase, monkeypatch):
+    """The kernel path builds no table but refuses the graphs whose padded
+    support or peel table would overflow the int32 layout, as the reference
+    does."""
+    ref_support = importlib.import_module("repro.core.support")
+    port_support = importlib.import_module("repro_torch.core.support")
+    g = port_build(GRAPHS["rmat"])
+    sup_pad = 1 << (port_support.support_table_size(g) - 1).bit_length()
+    peel_pad = 1 << (port_support.peel_table_size(g) - 1).bit_length()
+    assert peel_pad > sup_pad
+    # "peel": the support table fits, the peel table does not
+    ceiling = 8 if phase == "support" else sup_pad
+    for mod in (ref_support, port_support):
+        monkeypatch.setattr(mod, "_MAX_TABLE", ceiling)
+    with pytest.raises(ValueError, match="int32"):
+        ref_pkt.pkt(ref_build(GRAPHS["rmat"]))
+    with pytest.raises(ValueError, match="int32"):
+        port_pkt.pkt(g, mode=mode, support_mode=mode.replace(
+            "chunked", "torch"), device="cpu")

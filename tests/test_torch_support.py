@@ -123,8 +123,9 @@ def test_compute_support_all_modes_match_reference(name):
 @pytest.mark.parametrize("name", ["clique", "ring_of_cliques", "rmat", "er"])
 @pytest.mark.parametrize("chunk", [16, 100])
 def test_plain_k1_matches_pallas_interpret(name, chunk):
-    """support_accumulate_ref == the Pallas kernel (interpret mode) on [:m],
-    per-chunk triangle partials included; the partials sum to S.sum()/3."""
+    """support_accumulate_ref, fed by the CSR, == the Pallas kernel
+    (interpret mode) over the reference's own table on [:m], per-chunk
+    triangle partials included; the partials sum to S.sum()/3."""
     gr, gp = _graphs(name)
     tab = port_support.build_support_table(gp)
     c, n_chunks = port_wc.chunk_layout(tab.size, chunk)
@@ -140,10 +141,10 @@ def test_plain_k1_matches_pallas_interpret(name, chunk):
         jnp.asarray(gr.Eid), chunk=c, n_chunks=n_chunks, iters=iters,
         m=gr.m, interpret=True)
     before = port_kernel.COUNTS.as_dict()
+    dp = gp.device_arrays("cpu")
     S, tri = port_kernel.support_accumulate(
-        *(torch.tensor(a) for a in arrays), torch.tensor(gp.N),
-        torch.tensor(gp.Eid), chunk=c, n_chunks=n_chunks, iters=iters,
-        m=gp.m)
+        dp["u"], dp["v"], dp["Es"], dp["Eo"], dp["N"], dp["Eid"], m=gp.m,
+        chunk=c, n_chunks=n_chunks)
     after = port_kernel.COUNTS.as_dict()
     # a CPU tensor takes the plain version, never the kernel
     assert after["plain"] == before["plain"] + 1
