@@ -8,25 +8,29 @@ seconds:
 
 1. environment: ``nvidia-smi`` name and power limit, torch version, device;
 2. build: ``nvcc`` for every kernel source, all started together;
-3. kernel check: K1 (support), K2 (peel) and the sub-level update against
+3. kernel check: K1 (support), K2 (peel) and the sub-level updates against
    their plain versions and the table-fed torch executors, bitwise, at full
-   size — K1 on the whole graph, K2 and the update on states from the first
-   sub-level, a middle level (once with ``pinned``) and after a compaction;
-   CUDA-event times beside the bounds computed from each call's inputs;
+   size — K1 on the whole graph, K2 and the updates on states from the
+   first sub-level, a middle level (once with ``pinned``) and after a
+   compaction: K2's touched list against ``nonzero(dec)``, the sparse
+   update against its plain version, the dense update and the torch step;
+   CUDA-graph times (the sparse and the dense update apart) beside the
+   bounds computed from each call's inputs;
 4. main path: Graph500 R-MAT scale 17 / edge factor 16 / seed 0 through
    ``truss_pkt``'s steps with the default "kernel" executors, launch counts
    reset just before and read just after, then again with the torch
    executors; the two must agree bitwise; then one traced run (device time
    by kernel) and one instrumented run (every K2 and update launch's
-   bound);
+   bound, and the update bound with a dense ``dec`` read beside it);
 5. small-graph oracle: ``truss_pkt`` on the card vs ``truss_numpy``;
 6. engine: a seeded mix of 64 submissions through one ``TrussEngine``
    flush, each result equal to ``truss_pkt`` of the same graph;
 7. K3 check: the intersect kernel against its plain version, bitwise on
-   all three outputs — a seeded sweep over the reference tests' shapes
-   (int32 and int16, sorted, unsorted and duplicate rows), then every
-   non-empty degree-class bucket of the scale-17 graph, with CUDA-event
-   times beside the bound;
+   all three outputs, and its rows by path against each row's layout — a
+   seeded sweep over the reference tests' shapes (int32 and int16; sorted,
+   unsorted, duplicate, full, all-padding and 2–5-run rows), then every
+   non-empty degree-class bucket of the scale-17 graph, every row searched,
+   with CUDA-event times beside the bound (and the all-pairs bound);
 8. support kernel path: ``compute_support_kernel`` at scale 17, launch
    counts reset just before and read just after, equal to K1's support;
    then once more under ``torch.profiler``;
@@ -73,6 +77,10 @@ SCALE, EDGE_FACTOR, SEED = 17, 16, 0
 
 #: submissions in the engine phase
 ENGINE_GRAPHS = 64
+
+#: the sparse update walks all slots when its touched list holds more than
+#: m / UPDATE_DENSE_SHARE edges (``kDenseShare`` in csrc/peel.cu)
+UPDATE_DENSE_SHARE = 8
 
 #: where the phases run; the script is for the card and refuses to run
 #: without one
@@ -253,14 +261,14 @@ def check_k1(g, dev, mods) -> dict:
                 bound_by=b_by, bytes=nbytes, ops=ops, S0=S_k[:g.m].clone())
 
 
-def k2_call_bound(front, csr, N, Eid, pinned, mods) -> tuple:
+def k2_call_bound(front, csr, N, Eid, pinned, mods, n_touched) -> tuple:
     """Bytes, operations and wedge rows of one decrement fold over the
     frontier edges ``front``: their ids and endpoints, the CSR offsets and
     adjacency lists of the endpoints and Eid of the hit slots read once;
-    the state of the hit edges read once and their ``dec`` written once.
-    ``dec`` is written only where a hit lands (the update zeroes it), and
-    the work list is the kernel's own form of the frontier, so neither
-    counts in full."""
+    the state of the hit edges read once, their ``dec`` and the touched
+    list (``n_touched`` ids) written once.  ``dec`` is written only where a
+    hit lands (the update zeroes it), and the work list is the kernel's own
+    form of the frontier, so neither counts in full."""
     kp, wc = mods["kpeel"], mods["wc"]
     s0, n_scan, lo, hi = kp._scan_probe(front, csr.u, csr.v, csr.Es)
     ends = torch.cumsum(n_scan.long(), 0)
@@ -282,27 +290,37 @@ def k2_call_bound(front, csr, N, Eid, pinned, mods) -> tuple:
     state = 4 + 1 + 1 + (0 if pinned is None else 1) + 4
     nbytes = (4 * int(deg.sum()) + 8 * int(verts.numel())
               + 4 * int(hit_slots.numel()) + state * hit_edges
-              + 12 * int(front.numel()))
+              + 12 * int(front.numel()) + 4 * n_touched)
     ops = wedge_ops(n_scan, (hi - lo))
     return nbytes, ops, int(ends[-1]) if front.numel() else 0
 
 
-def update_bound(m, n_front, n_dec, n_next) -> tuple:
-    """Bytes of one sub-level update.  Only a decremented edge can join the
-    next frontier, so after a fold the update needs ``dec`` read over the
-    m + 1 slots, each frontier edge's id read and its two flags written,
-    each decremented edge's S read and written, its flags read and its dec
-    zeroed; the next frontier's flag and id written.  A level's start
-    (``n_front == 0``, no fold before it) reads S and processed over the
-    m + 1 slots instead of dec."""
-    dense = 4 * (m + 1) if n_front else 5 * (m + 1)
-    return dense + 6 * n_front + 14 * n_dec + 5 * n_next, 0, m + 1
+def update_bounds(m, n_front, n_touched, n_next) -> tuple:
+    """Bytes of one sub-level update: the graph's need, and with a dense
+    ``dec`` read.
+
+    Restated, the work the graph needs: each old frontier edge's id read
+    and its two flags written; each touched edge's id (the touched list),
+    dec and S read and its S and dec written; the next frontier's flag and
+    id written.  A level's start (``n_front == 0``: no fold before it)
+    reads S and processed over the m + 1 slots instead.  The dense
+    statement counts a ``dec`` read over the m + 1 slots after every fold
+    and 14 B a decremented edge (S read and written, flags read, dec
+    zeroed), what a pass over all slots reads."""
+    if not n_front:
+        level_start = 5 * (m + 1) + 5 * n_next
+        return level_start, level_start
+    restated = 6 * n_front + 20 * n_touched + 5 * n_next
+    old = 4 * (m + 1) + 6 * n_front + 14 * n_touched + 5 * n_next
+    return restated, old
 
 
 class K2Bounds:
     """Wraps the K2 and update entry points of ``kernels/peel.py`` for one
     instrumented run: each call's bound is computed from its own inputs
-    (reading them costs host syncs, so the run is not a timed one)."""
+    and outputs (reading them costs host syncs, so the run is not a timed
+    one).  ``calls`` holds ``(kind, bytes, ops, rows)`` for the fold and
+    ``(kind, bytes, 0, bytes with a dense dec read)`` for the updates."""
 
     def __init__(self, mods):
         self.kp = mods["kpeel"]
@@ -311,47 +329,64 @@ class K2Bounds:
 
     def __enter__(self):
         kp = self.kp
-        self.fold, self.update = kp.peel_decrement_fold, kp.sublevel_update
+        self.saved = (kp.peel_decrement_fold, kp.sublevel_update,
+                      kp.dense_update)
+        orig_fold, orig_sparse, orig_dense = self.saved
 
         def fold(work_e, work_j, counts, l, u, v, Es, N, Eid, S_ext,
                  processed, inCurr, pinned=None, *, m, **kw):
             n = int(counts[0])
             front = work_e[:n][work_j[:n] == 0]
+            out = orig_fold(work_e, work_j, counts, l, u, v, Es, N, Eid,
+                            S_ext, processed, inCurr, pinned, m=m, **kw)
             csr = self.mods["pkt"].PeelCSR(u, v, Es, 0)
             self.calls.append(("fold",) + k2_call_bound(
-                front, csr, N, Eid, pinned, self.mods))
-            return self.fold(work_e, work_j, counts, l, u, v, Es, N, Eid,
-                             S_ext, processed, inCurr, pinned, m=m, **kw)
+                front, csr, N, Eid, pinned, self.mods, int(counts[3])))
+            return out
 
-        def update(*args, m):
+        def sparse(*args, m):
+            _, n_front, _, n_touched = args[10].tolist()
+            orig_sparse(*args, m=m)
+            new, old = update_bounds(m, n_front, n_touched, int(args[-1][1]))
+            self.calls.append(("update", new, 0, old))
+
+        def dense(*args, m):
             dec, curr = args[0], args[3]
             n_dec, n_front = int((dec != 0).sum()), int(curr.sum())
-            self.update(*args, m=m)
-            n_next = int(args[-1][1])
-            self.calls.append(("update",) + update_bound(m, n_front, n_dec,
-                                                         n_next))
+            orig_dense(*args, m=m)
+            new, old = update_bounds(m, n_front, n_dec, int(args[-1][1]))
+            self.calls.append(("dense", new, 0, old))
 
-        kp.peel_decrement_fold, kp.sublevel_update = fold, update
+        kp.peel_decrement_fold = fold
+        kp.sublevel_update, kp.dense_update = sparse, dense
         return self
 
     def __exit__(self, *exc):
-        self.kp.peel_decrement_fold = self.fold
-        self.kp.sublevel_update = self.update
+        (self.kp.peel_decrement_fold, self.kp.sublevel_update,
+         self.kp.dense_update) = self.saved
 
     def summed(self, kind) -> dict:
-        """Calls of ``kind`` and their bounds summed."""
+        """Calls of ``kind`` and their bounds summed; for the updates also
+        the bound with a dense ``dec`` read."""
         rows = [c for c in self.calls if c[0] == kind]
         b = [bound_ms(nb, ops) for _, nb, ops, _ in rows]
-        return dict(calls=len(rows), bound_ms=sum(t for t, _ in b),
-                    bound_by={by: sum(1 for _, x in b if x == by)
-                              for by in ("bytes", "operations")},
-                    bytes=sum(r[1] for r in rows), ops=sum(r[2] for r in rows))
+        out = dict(calls=len(rows), bound_ms=sum(t for t, _ in b),
+                   bound_by={by: sum(1 for _, x in b if x == by)
+                             for by in ("bytes", "operations")},
+                   bytes=sum(r[1] for r in rows),
+                   ops=sum(r[2] for r in rows))
+        if kind != "fold":
+            out["bound_ms_dense_dec"] = sum(bound_ms(r[3], 0)[0] for r in rows)
+        return out
 
 
 def k2_case(label, st, mods) -> dict:
-    """K2 and the sub-level update against their plain versions and the
+    """K2 and the sub-level updates against their plain versions and the
     table-fed torch executor ("chunked") at one peel state, the first
-    sub-level of its level; CUDA-event times beside the bounds."""
+    sub-level of its level: the dense update forms the level's frontier,
+    the fold lists its touched edges, and the sparse update (and the dense
+    one, for comparison) consumes them.  CUDA-graph times beside the
+    bounds."""
     pkt_mod, kp = mods["pkt"], mods["kpeel"]
     csr, tabs = st["csr"], st["tabs"]
     N, Eid, m, pinned = st["N"], st["Eid"], st["m"], st["pinned"]
@@ -360,36 +395,59 @@ def k2_case(label, st, mods) -> dict:
     zeros = functools.partial(torch.zeros, m + 1, device=dev)
     l = torch.where(processed, pkt_mod._SENTINEL_S, S_ext).min().reshape(1)
 
-    def work_buffers():
-        return (torch.full((csr.work_cap,), -1, dtype=torch.int32,
-                           device=dev),
-                torch.full((csr.work_cap,), -1, dtype=torch.int32,
-                           device=dev),
-                torch.zeros(4, dtype=torch.int32, device=dev))
+    def buffers():
+        buf = kp.buffers(m, csr.work_cap, dev)
+        for t in (buf.touched, buf.front, buf.work_e, buf.work_j):
+            t.fill_(-1)
+        return buf
 
-    # the level's first frontier, made by the update kernel (level start)
+    def same_set(x, y) -> bool:
+        return torch.equal(torch.sort(x.long()).values,
+                           torch.sort(y.long()).values)
+
+    def items(buf, p) -> torch.Tensor:
+        n_it = int(buf.counts[p, 0])
+        pair = buf.work_e[:n_it].long() * (1 << 20) + buf.work_j[:n_it]
+        return torch.sort(pair).values
+
+    # the level's first frontier, made by the dense update (level start)
+    lvl = buffers()
     inCurr = zeros(dtype=torch.bool)
-    work_e, work_j, counts = work_buffers()
-    kp.sublevel_update(zeros(dtype=torch.int32), S_ext.clone(),
-                       processed.clone(), inCurr, l, csr.u, csr.v, csr.Es,
-                       work_e, work_j, counts, m=m)
+    S0, P0 = S_ext.clone(), processed.clone()
+    kp.dense_update(lvl.dec, S0, P0, inCurr, l, csr.u, csr.v, csr.Es,
+                    lvl.front[0], lvl.work_e, lvl.work_j, lvl.counts[0], m=m)
     want = ~processed & (S_ext == l)
     want[m] = False
-    if not torch.equal(inCurr, want):
-        raise AssertionError(f"update ({label}): level start frontier")
+    n_front0 = int(lvl.counts[0, 1])
+    if not (torch.equal(inCurr, want) and torch.equal(S0, S_ext)
+            and torch.equal(P0, processed)
+            and int(lvl.counts[0, 2]) == int(processed.sum())
+            and same_set(lvl.front[0, :n_front0],
+                         torch.nonzero(want)[:, 0])):
+        raise AssertionError(f"dense update ({label}): level start")
+    front = lvl.front[0, :n_front0].clone()
+    work_e, work_j = lvl.work_e, lvl.work_j
     fold_args = (l, csr.u, csr.v, csr.Es, N, Eid, S_ext, processed, inCurr,
                  pinned)
-    dec_k = kp.peel_decrement_fold(work_e, work_j, counts, *fold_args, m=m)
-    dec_p = kp.peel_decrement_fold_ref(work_e, work_j, counts, *fold_args,
-                                       m=m)
+
+    def fold_counts():
+        return lvl.counts[0].clone()  # n_touched 0, as a fold needs
+
+    counts = fold_counts()
+    dec_k, touched_k = kp.peel_decrement_fold(work_e, work_j, counts,
+                                              *fold_args, m=m)
+    counts_p = fold_counts()
+    dec_p, touched_p = kp.peel_decrement_fold_ref(work_e, work_j, counts_p,
+                                                  *fold_args, m=m)
     # the same frontier in a shuffled order, listed by torch ops
-    front = torch.nonzero(inCurr)[:, 0].to(torch.int32)
     gen = torch.Generator(device=dev).manual_seed(SEED)
     shuffled = front[torch.randperm(front.numel(), generator=gen,
                                     device=dev)]
-    sh_e, sh_j, sh_counts = work_buffers()
-    kp.frontier_work(shuffled, csr.u, csr.v, csr.Es, sh_e, sh_j, sh_counts)
-    dec_s = kp.peel_decrement_fold(sh_e, sh_j, sh_counts, *fold_args, m=m)
+    sh = buffers()
+    kp.frontier_work(shuffled, csr.u, csr.v, csr.Es, sh.work_e, sh.work_j,
+                     sh.counts[0])
+    dec_s, touched_s = kp.peel_decrement_fold(sh.work_e, sh.work_j,
+                                              sh.counts[0], *fold_args, m=m)
     dec_t = pkt_mod._decrements(
         "chunked", N, Eid, S_ext, processed, inCurr, l.reshape(()), tabs,
         pinned=pinned, m=m, chunk=st["chunk"], n_chunks=st["n_chunks"],
@@ -400,79 +458,131 @@ def k2_case(label, st, mods) -> dict:
     if err != 0:
         raise AssertionError(f"K2 ({label}) disagrees with its plain version "
                              f"or the chunked torch executor: {err}")
+    n_touched = int(counts[3])
+    nz = torch.nonzero(dec_k[:m])[:, 0]
+    if not (n_touched == nz.numel() == int(counts_p[3])
+            == int(sh.counts[0, 3])
+            and same_set(touched_k[:n_touched], nz)
+            and torch.equal(touched_p[:n_touched].long(), nz)
+            and same_set(touched_s[:n_touched], nz)):
+        raise AssertionError(f"K2 ({label}): the touched list is not "
+                             f"nonzero(dec)")
     n_items = int(counts[0])
-
-    def fold_setup():
-        return (zeros(dtype=torch.int32),)
-
-    def fold(dec):
-        kp.peel_decrement_fold(work_e, work_j, counts, *fold_args, m=m,
-                               dec=dec)
-
     dec_acc = zeros(dtype=torch.int32)  # the graph's launches add into it
-    ms = graph_ms(lambda: fold(dec_acc))
-    ms_events = cuda_ms_each(fold_setup, fold, 5)
-    plain_ms = cuda_ms_each(fold_setup, lambda dec: kp.peel_decrement_fold_ref(
-        work_e, work_j, counts, *fold_args, m=m, dec=dec), 1)
-    nbytes, ops, _ = k2_call_bound(front, csr, N, Eid, pinned, mods)
+    t_acc = torch.empty(m, dtype=torch.int32, device=dev)
+    ms = graph_ms(lambda: kp.peel_decrement_fold(
+        work_e, work_j, fold_counts(), *fold_args, m=m, dec=dec_acc,
+        touched=t_acc))
+    plain_ms = cuda_ms_each(
+        lambda: (zeros(dtype=torch.int32), fold_counts()),
+        lambda dec, c: kp.peel_decrement_fold_ref(
+            work_e, work_j, c, *fold_args, m=m, dec=dec), 1)
+    nbytes, ops, _ = k2_call_bound(front, csr, N, Eid, pinned, mods,
+                                   n_touched)
     b_ms, b_by = bound_ms(nbytes, ops)
 
-    # the update after this fold: kernel, plain version, torch executors'
-    def upd_setup():
-        return (dec_k.clone(), S_ext.clone(), processed.clone(),
-                inCurr.clone(), l, csr.u, csr.v, csr.Es, *work_buffers())
+    # the update after this fold: the sparse kernel and its plain version,
+    # the dense kernel and its plain version, the torch executors' step
+    def upd_state():
+        buf = buffers()
+        buf.dec.copy_(dec_k)
+        buf.touched.copy_(touched_k)
+        buf.front[0].copy_(lvl.front[0])
+        buf.counts[0].copy_(counts)
+        return buf, S_ext.clone(), processed.clone(), inCurr.clone()
+
+    def sparse_args(buf, S, P, C):
+        return (buf.dec, S, P, C, l, csr.u, csr.v, csr.Es, buf.touched,
+                buf.front[0], buf.counts[0], buf.front[1], buf.work_e,
+                buf.work_j, buf.counts[1])
+
+    def dense_args(buf, S, P, C):
+        return (buf.dec, S, P, C, l, csr.u, csr.v, csr.Es, buf.front[1],
+                buf.work_e, buf.work_j, buf.counts[1])
 
     outs = []
-    for fn in (kp.sublevel_update, kp.sublevel_update_ref):
-        args = upd_setup()
-        fn(*args, m=m)
-        n_it = int(args[-1][0])
-        items = torch.stack([args[-3][:n_it], args[-2][:n_it]]).long()
-        items = torch.sort(items[0] * (1 << 20) + items[1]).values
-        outs.append((args[:4], args[-1][:3], items))
-    (kd, kS, kP, kC), k_counts, k_items = outs[0]
-    (pd, pS, pP, pC), p_counts, p_items = outs[1]
+    for fn, argf in ((kp.sublevel_update, sparse_args),
+                     (kp.sublevel_update_ref, sparse_args),
+                     (kp.dense_update, dense_args),
+                     (kp.dense_update_ref, dense_args)):
+        buf, S, P, C = upd_state()
+        fn(*argf(buf, S, P, C), m=m)
+        n_next = int(buf.counts[1, 1])
+        outs.append(((buf.dec, S, P, C), buf.counts[1],
+                     torch.sort(buf.front[1, :n_next].long()).values,
+                     items(buf, 1)))
     tS, tP = S_ext.clone(), processed.clone()
     tC = kp.apply_decrements(dec_k.clone(), tS, tP, inCurr.clone(),
                              l.reshape(()), m)
     torch.cuda.synchronize()
+    (kd, kS, kP, kC), k_counts, k_front, k_items = outs[0]
     upd_err = max(max_abs_err(x, y) for x, y in (
-        (kS, pS), (kP, pP), (kC, pC), (kd, pd), (kd, torch.zeros_like(kd)),
-        (kS, tS), (kP, tP), (kC, tC)))
-    same = (upd_err == 0 and torch.equal(k_counts, p_counts)
-            and torch.equal(k_items, p_items))
-    if not same:
-        raise AssertionError(f"update ({label}) disagrees with its plain "
-                             f"version or the torch executors' step")
-    saved = upd_setup()
-    work = upd_setup()
+        (kd, torch.zeros_like(kd)), (kS, tS), (kP, tP), (kC, tC)))
+    for state, cnt, fr, it in outs[1:]:
+        upd_err = max([upd_err] + [max_abs_err(x, y) for x, y in
+                                   zip((kd, kS, kP, kC), state)])
+        if not (torch.equal(cnt, k_counts) and torch.equal(fr, k_front)
+                and torch.equal(it, k_items)):
+            upd_err = max(upd_err, 1)
+    if upd_err != 0 or not torch.equal(k_front, torch.nonzero(tC)[:, 0]):
+        raise AssertionError(f"update ({label}): the sparse update disagrees "
+                             f"with its plain version, the dense update or "
+                             f"the torch executors' step")
 
-    def upd_restore():
-        for dst, src in zip(work[:4], saved[:4]):
-            dst.copy_(src)
+    # the dense update in its main-path role: a level's start (zero dec,
+    # empty frontier)
+    def start_state():
+        buf = buffers()
+        return buf, S_ext.clone(), processed.clone(), zeros(dtype=torch.bool)
 
-    upd_ms = graph_ms(lambda: kp.sublevel_update(*work, m=m),
-                      restore=upd_restore)
-    upd_ms_events = cuda_ms_each(upd_setup,
-                                 lambda *a: kp.sublevel_update(*a, m=m), 5)
-    upd_plain_ms = cuda_ms_each(
-        upd_setup, lambda *a: kp.sublevel_update_ref(*a, m=m), 1)
+    def upd_timed(fn, argf, state=upd_state):
+        saved = state()
+        work = state()
+
+        def restore():
+            for dst, src in zip((work[0].dec, *work[1:]),
+                                (saved[0].dec, *saved[1:])):
+                dst.copy_(src)
+
+        return graph_ms(lambda: fn(*argf(*work), m=m), restore=restore)
+
+    sparse_ms = upd_timed(kp.sublevel_update, sparse_args)
+    dense_ms = upd_timed(kp.dense_update, dense_args)
+    start_ms = upd_timed(kp.dense_update, dense_args, start_state)
+
+    def plain_ms_of(fn, argf):
+        return cuda_ms_each(lambda: argf(*upd_state()),
+                            lambda *a: fn(*a, m=m), 1)
+
+    sparse_plain_ms = plain_ms_of(kp.sublevel_update_ref, sparse_args)
+    dense_plain_ms = plain_ms_of(kp.dense_update_ref, dense_args)
     n_items_next, n_front_next = k_counts[:2].tolist()
-    u_bytes, _, _ = update_bound(m, int(front.numel()),
-                                 int((dec_k != 0).sum()), n_front_next)
-    u_ms, u_by = bound_ms(u_bytes, 0)
+    u_bytes, u_bytes_old = update_bounds(m, n_front0, n_touched,
+                                         n_front_next)
+    s_bytes, _ = update_bounds(m, 0, 0, n_front0)
     return dict(state=label, level=int(l), pinned=pinned is not None,
-                frontier_edges=int(front.numel()), work_items=n_items,
+                frontier_edges=n_front0, work_items=n_items,
                 rows_frontier=int(torch.cumsum(kp._scan_probe(
                     front, csr.u, csr.v, csr.Es)[1].long(), 0)[-1]),
-                decrements=int(dec_k.sum()), max_abs_err=err, ms=ms,
-                ms_events=ms_events, plain_ms=plain_ms, bound_ms=b_ms,
+                decrements=int(dec_k.sum()), touched_edges=n_touched,
+                max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
                 bound_by=b_by, bytes=nbytes, ops=ops,
-                update=dict(max_abs_err=upd_err, ms=upd_ms,
-                            ms_events=upd_ms_events, plain_ms=upd_plain_ms,
-                            bound_ms=u_ms, bound_by=u_by, bytes=u_bytes,
+                touched_list_equals_nonzero_dec=True,
+                update=dict(max_abs_err=upd_err, ms=sparse_ms,
+                            dense_ms=dense_ms, plain_ms=sparse_plain_ms,
+                            dense_plain_ms=dense_plain_ms,
+                            sparse_beats_dense=sparse_ms < dense_ms,
+                            walks_all_slots=(n_touched
+                                             > m // UPDATE_DENSE_SHARE),
+                            bound_ms=bound_ms(u_bytes, 0)[0],
+                            bound_by="bytes", bytes=u_bytes,
+                            bound_ms_dense_dec=bound_ms(u_bytes_old, 0)[0],
+                            bytes_dense_dec=u_bytes_old,
                             next_frontier_edges=n_front_next,
-                            next_work_items=n_items_next))
+                            next_work_items=n_items_next),
+                level_start=dict(ms=start_ms, bound_ms=bound_ms(s_bytes,
+                                                                0)[0],
+                                 bound_by="bytes", bytes=s_bytes))
 
 
 def check_k2(g, dev, S0, mods) -> list:
@@ -539,24 +649,71 @@ K3_SWEEP = ((1, 8, 8), (5, 8, 32), (17, 16, 16), (64, 32, 8), (33, 64, 128),
 K3_BLOCK_ROWS = (4, 64)
 
 
-def k3_rows(rng, E, D, pad, dtype, *, ordered: bool):
-    """(E, D) id rows: sorted distinct ids then ``pad`` (``ordered``), or
-    ids drawn with repeats from a small range, shuffled with pads."""
-    if ordered:
-        out = np.full((E, D), pad, dtype)
+#: the b-row layouts of the sweep: the reference tests' sorted rows and
+#: unsorted rows with repeats, and the layouts between which the kernel
+#: chooses its path
+K3_KINDS = ("sorted", "unsorted", "duplicates", "full", "padding", "runs2",
+            "runs3", "runs4", "runs5")
+#: the most non-decreasing runs of a b row that the kernel searches
+K3_SEARCH_RUNS = 4
+
+
+def k3_rows(rng, E, D, pad, dtype, kind):
+    """(E, D) id rows of one layout: "sorted" (distinct ids, then ``pad``),
+    "unsorted" (ids drawn with repeats from a small range, shuffled with
+    pads, in more than ``K3_SEARCH_RUNS`` runs; D must exceed it), "duplicates" (sorted with repeats, then ``pad``), "full" (one
+    sorted run, no padding), "padding" (all ``pad``) or "runs<k>" (``k``
+    sorted runs, no padding; fewer when D < 2k)."""
+    if kind == "unsorted":
+        def draw():
+            row = rng.integers(0, 24, size=D).astype(dtype)
+            row[rng.random(D) < 0.2] = pad
+            return row
+
+        # redrawn until it has more runs than the kernel searches
+        out = np.stack([draw() for _ in range(E)])
         for i in range(E):
+            while k3_searched_rows(out[i:i + 1]):
+                out[i] = draw()
+        return out
+    out = np.full((E, D), pad, dtype)
+    if kind == "padding":
+        return out
+    for i in range(E):
+        if kind == "sorted":
             vals = np.sort(rng.choice(500, size=int(rng.integers(0, D + 1)),
                                       replace=False))
-            out[i, :vals.size] = vals
-        return out
-    out = rng.integers(0, 24, size=(E, D)).astype(dtype)
-    out[rng.random((E, D)) < 0.2] = pad
+        elif kind == "duplicates":
+            vals = np.sort(rng.integers(0, 2 * D,
+                                        size=int(rng.integers(0, D + 1))))
+        elif kind == "full":
+            vals = np.sort(rng.integers(0, 2 * D, size=D))
+        else:
+            k = min(int(kind[4:]), D // 2)
+            lens = [D // k] * (k - 1) + [D - (D // k) * (k - 1)]
+            # each run climbs from 0 to 2D, so each boundary descends
+            vals = np.concatenate([np.sort(np.concatenate(
+                [[0, 2 * D], rng.integers(0, 2 * D, size=n - 2)]))
+                for n in lens])
+        out[i, :vals.size] = vals
     return out
 
 
-def k3_compare(kint, a, b, block_rows) -> int:
-    """K3 vs its plain version on one input; raises on any difference."""
+def k3_searched_rows(b) -> int:
+    """Rows of ``b`` (numpy) the kernel should search: at most
+    ``K3_SEARCH_RUNS`` maximal non-decreasing runs."""
+    if b.shape[1] == 0:
+        return b.shape[0]
+    runs = 1 + (np.diff(b.astype(np.int64), axis=1) < 0).sum(axis=1)
+    return int((runs <= K3_SEARCH_RUNS).sum())
+
+
+def k3_compare(kint, a, b, block_rows, dev) -> dict:
+    """K3 vs its plain version on one input; raises on any difference.
+    Returns the kernel's rows by path for this launch."""
+    kint.reset_path_rows()
     got = kint.intersect_blocked(a, b, block_rows=block_rows)
+    paths = kint.path_rows(dev)
     want = kint.intersect_ref(a, b)
     torch.cuda.synchronize()
     err = max(max_abs_err(g, w) for g, w in zip(got, want))
@@ -564,30 +721,55 @@ def k3_compare(kint, a, b, block_rows) -> int:
         raise AssertionError(f"K3 disagrees with its plain version on "
                              f"{tuple(a.shape)} x {tuple(b.shape)} "
                              f"{a.dtype}: {err}")
-    return err
+    if paths["search"] + paths["all_pairs"] != a.shape[0]:
+        raise AssertionError(f"K3 counted {paths} rows of {a.shape[0]}")
+    return paths
 
 
 def check_k3_sweep(dev, kint) -> dict:
     """K3 on the reference tests' shapes: int32 and int16, block rows 4 and
-    64, sorted rows and unsorted rows with duplicates."""
+    64, every b-row layout of ``K3_KINDS`` (a: sorted with repeats, or
+    unsorted beside unsorted b).  Each launch's rows by path must be the
+    layout's: every row of at most ``K3_SEARCH_RUNS`` runs searched, every
+    other row all-pairs."""
     rng = np.random.default_rng(SEED)
     cases = 0
+    by_kind = {k: dict(search=0, all_pairs=0) for k in K3_KINDS}
     for E, DA, DB in K3_SWEEP:
         for dtype in (np.int32, np.int16):
-            for ordered in (True, False):
-                a = torch.tensor(k3_rows(rng, E, DA, -1, dtype,
-                                         ordered=ordered), device=dev)
-                b = torch.tensor(k3_rows(rng, E, DB, -2, dtype,
-                                         ordered=ordered), device=dev)
+            for kind in K3_KINDS:
+                a_kind = "unsorted" if kind == "unsorted" else "duplicates"
+                a_np = k3_rows(rng, E, DA, -1, dtype, a_kind)
+                b_np = k3_rows(rng, E, DB, -2, dtype, kind)
+                if kind == "padding":
+                    a_np[:, 0] = -2  # an id equal to the padding
+                a = torch.tensor(a_np, device=dev)
+                b = torch.tensor(b_np, device=dev)
+                want = k3_searched_rows(b_np)
                 for block_rows in K3_BLOCK_ROWS:
-                    k3_compare(kint, a, b, block_rows)
+                    paths = k3_compare(kint, a, b, block_rows, dev)
+                    if paths["search"] != want:
+                        raise AssertionError(
+                            f"K3 searched {paths['search']} rows of a "
+                            f"{kind} {E}x{DB} b, expected {want}")
+                    for key in by_kind[kind]:
+                        by_kind[kind][key] += paths[key]
                     cases += 1
-    return dict(cases=cases, shapes=len(K3_SWEEP), max_abs_err=0)
+    # rows of at most two runs always search; unsorted rows never do, nor
+    # five runs where the width holds them
+    two_runs = ("sorted", "duplicates", "full", "padding", "runs2")
+    if (any(by_kind[k]["all_pairs"] for k in two_runs)
+            or by_kind["unsorted"]["search"]
+            or not by_kind["runs5"]["all_pairs"]):
+        raise AssertionError(f"K3 rows by layout and path: {by_kind}")
+    return dict(cases=cases, shapes=len(K3_SWEEP), max_abs_err=0,
+                rows_by_kind_and_path=by_kind)
 
 
 def check_k3_buckets(g, dev, kint, ops) -> list:
     """K3 on every non-empty degree-class bucket of ``g``, built as
-    ``compute_support_kernel`` builds it."""
+    ``compute_support_kernel`` builds it; every row must take the search
+    path."""
     arrays = g.device_arrays(dev)
     buckets, _ = ops.degree_buckets(g)
     rows = []
@@ -596,20 +778,29 @@ def check_k3_buckets(g, dev, kint, ops) -> list:
               for x in (u_start, u_len, v_start, v_len)]
         ra, _, rb, _ = ops.bucket_rows(arrays["N"], arrays["Eid"], *up, D)
         del up
-        block_rows = ops._block_rows_for(D)
-        err = k3_compare(kint, ra, rb, block_rows)
+        block_rows = ops.BLOCK_ROWS
+        E = int(ids.size)
+        paths = k3_compare(kint, ra, rb, block_rows, dev)
+        if paths != {"search": E, "all_pairs": 0}:
+            raise AssertionError(f"K3 bucket D = {D}: rows by path {paths}, "
+                                 f"expected all {E} searched")
         ms = cuda_ms(lambda: kint.intersect_blocked(
             ra, rb, block_rows=block_rows), 5)
         plain_ms = cuda_ms(lambda: kint.intersect_ref(ra, rb), 1)
-        E = int(ids.size)
-        # a and b read once, count, hit_a and hit_b written once; one
-        # compare per (a slot, b slot) pair
+        # a and b read once, count, hit_a and hit_b written once; per row
+        # the fewer of merge (DA + DB) and search (DA x ceil(log2(DB + 1)))
+        # compares, and all-pairs (DA x DB) compares beside them
         nbytes = 4 * E * 2 * D + 4 * E + 4 * E * 2 * D
-        ops_n = E * D * D
+        ops_n = E * min(2 * D, D * int(np.ceil(np.log2(D + 1))))
+        ops_all_pairs = E * D * D
         b_ms, b_by = bound_ms(nbytes, ops_n)
-        rows.append(dict(D=D, E=E, block_rows=block_rows, max_abs_err=err,
-                         ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                         bound_by=b_by, bytes=nbytes, ops=ops_n))
+        rows.append(dict(D=D, E=E, block_rows=block_rows, max_abs_err=0,
+                         rows_by_path=paths, ms=ms,
+                         plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                         bytes=nbytes, ops=ops_n,
+                         bound_ms_all_pairs=bound_ms(nbytes,
+                                                     ops_all_pairs)[0],
+                         ops_all_pairs=ops_all_pairs))
         del ra, rb
         torch.cuda.empty_cache()
     return rows
@@ -761,21 +952,24 @@ def main() -> int:
     ksupport.COUNTS.reset()
     kpeel.COUNTS.reset()
     kpeel.UPDATE_COUNTS.reset()
+    kpeel.DENSE_COUNTS.reset()
     kint.COUNTS.reset()
     res = pkt_mod.pkt(g, phase_timings=True, device=dev)
     truss = pkt_mod.align_to_input(res.trussness, g, None, n, keys=row_keys)
     counts = dict(support=ksupport.COUNTS.as_dict(),
                   peel=kpeel.COUNTS.as_dict(),
                   update=kpeel.UPDATE_COUNTS.as_dict(),
+                  dense=kpeel.DENSE_COUNTS.as_dict(),
                   intersect=kint.COUNTS.as_dict())
     t_kernel = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated()
     pkt_mod._active_chunk_mask = chunk_mask
     if (counts["support"]["kernel"] != 1
             or counts["peel"]["kernel"] != res.sublevels
-            or counts["update"]["kernel"] < res.sublevels):
+            or counts["update"]["kernel"] != res.sublevels
+            or counts["dense"]["kernel"] != res.levels):
         raise AssertionError(f"main path did not launch the kernels once "
-                             f"per phase / sub-level: {counts}")
+                             f"per phase / sub-level / level: {counts}")
     if any(c["plain"] for c in counts.values()) or mask_calls:
         raise AssertionError(f"main path ran a plain version or the chunk "
                              f"mask ({len(mask_calls)} calls): {counts}")
@@ -816,7 +1010,8 @@ def main() -> int:
     main_profile = profile_run(
         lambda: pkt_mod.pkt(g, device=dev),
         named=dict(peel_decrement_fold="peel_kernel",
-                   sublevel_update="update_kernel",
+                   sparse_update="sparse_update_kernel",
+                   dense_update="dense_update_kernel",
                    support_accumulate="support_kernel"),
         sequence="peel_kernel")
     k2_launch_ms = main_profile.pop("sequence_ms")
@@ -829,7 +1024,8 @@ def main() -> int:
     if not np.array_equal(res_b.trussness, res.trussness):
         raise AssertionError("instrumented run differs from the main path")
     for key, label in (("peel", "peel_decrement_fold"),
-                       ("update", "sublevel_update")):
+                       ("update", "sparse_update"),
+                       ("dense", "dense_update")):
         if main_profile["named"][label]["calls"] != counts[key]["kernel"]:
             raise AssertionError(f"the profile saw "
                                  f"{main_profile['named'][label]} {label} "
@@ -838,7 +1034,9 @@ def main() -> int:
     k2_total = dict(k2_bounds.summed("fold"),
                     device_ms=main_profile["named"]["peel_decrement_fold"])
     update_total = dict(k2_bounds.summed("update"),
-                        device_ms=main_profile["named"]["sublevel_update"])
+                        device_ms=main_profile["named"]["sparse_update"])
+    dense_total = dict(k2_bounds.summed("dense"),
+                       device_ms=main_profile["named"]["dense_update"])
     # K2's launches by the wedge rows of their frontier: the profile's
     # launch times beside the instrumented run's bounds (same launch order)
     folds = [c for c in k2_bounds.calls if c[0] == "fold"]
@@ -855,7 +1053,8 @@ def main() -> int:
         row["device_ms"] += ms
         row["bound_ms"] += bound_ms(nb, ops)[0]
     emit("main_path_k2_aggregate", peel_decrement_fold=k2_total,
-         sublevel_update=update_total, k2_by_frontier_rows=by_rows,
+         sparse_update=update_total, dense_update=dense_total,
+         k2_by_frontier_rows=by_rows,
          seconds=time.perf_counter() - t0)
     del res_b, k2_bounds
     torch.cuda.empty_cache()
@@ -927,6 +1126,7 @@ def main() -> int:
          row_slots=sum(r["E"] * r["D"] for r in k3_buckets),
          ms=sum(r["ms"] for r in k3_buckets),
          bound_ms=sum(r["bound_ms"] for r in k3_buckets),
+         bound_ms_all_pairs=sum(r["bound_ms_all_pairs"] for r in k3_buckets),
          plain_ms=sum(r["plain_ms"] for r in k3_buckets),
          seconds=time.perf_counter() - t0)
 
@@ -1060,16 +1260,28 @@ def main() -> int:
              library_ms=None,
              per_pkt_device_ms=k2_total["device_ms"]["ms"],
              per_pkt_bound_ms=k2_total["bound_ms"]),
+        # the sparse update after a fold and the dense one of a level's
+        # start; ms / plain_ms / bound_ms are the sparse launch's
         dict(name="sublevel_update", route="cuda",
              source="src/repro_torch/kernels/csrc/peel.cu",
              replaces="src/repro/core/pkt.py:264",
-             launches=main_counts["update"]["kernel"],
+             launches=(main_counts["update"]["kernel"]
+                       + main_counts["dense"]["kernel"]),
+             launches_sparse=main_counts["update"]["kernel"],
+             launches_level_start=main_counts["dense"]["kernel"],
              max_abs_err=max(c["update"]["max_abs_err"] for c in k2_cases),
              state=k2_first["state"], ms=upd_first["ms"],
+             dense_ms=upd_first["dense_ms"],
              plain_ms=upd_first["plain_ms"], bound_ms=upd_first["bound_ms"],
              bound_by=upd_first["bound_by"], library_ms=None,
-             per_pkt_device_ms=update_total["device_ms"]["ms"],
-             per_pkt_bound_ms=update_total["bound_ms"]),
+             per_pkt_device_ms=(update_total["device_ms"]["ms"]
+                                + dense_total["device_ms"]["ms"]),
+             per_pkt_sparse_ms=update_total["device_ms"]["ms"],
+             per_pkt_level_start_ms=dense_total["device_ms"]["ms"],
+             per_pkt_bound_ms=(update_total["bound_ms"]
+                               + dense_total["bound_ms"]),
+             per_pkt_bound_ms_dense_dec=(update_total["bound_ms_dense_dec"]
+                                    + dense_total["bound_ms_dense_dec"])),
         # the widest bucket; the all_buckets_* keys sum the six launches of
         # one compute_support_kernel call
         dict(name="intersect_blocked", route="cuda",
@@ -1084,6 +1296,12 @@ def main() -> int:
              bound_by=k3_buckets[-1]["bound_by"], library_ms=None,
              all_buckets_ms=sum(r["ms"] for r in k3_buckets),
              all_buckets_bound_ms=sum(r["bound_ms"] for r in k3_buckets),
+             all_buckets_bound_ms_all_pairs=sum(
+                 r["bound_ms_all_pairs"] for r in k3_buckets),
+             bucket_rows_by_path=dict(
+                 search=sum(r["rows_by_path"]["search"] for r in k3_buckets),
+                 all_pairs=sum(r["rows_by_path"]["all_pairs"]
+                               for r in k3_buckets)),
              launches_on_pkt_main_path=main_counts["intersect"]["kernel"]),
     ]
     emit("done", seconds=time.perf_counter() - t_all)

@@ -15,12 +15,14 @@ the mapping from the OpenMP original):
                       chunk skipping over the flat peel wedge table (torch)
 
 Three peel executors (``mode`` / ``peel_mode``), bitwise identical:
-  mode="kernel" (default): ``kernels/peel.py`` — two hand-written CUDA
+  mode="kernel" (default): ``kernels/peel.py`` — hand-written CUDA
                  kernels on the card, their plain PyTorch versions on CPU
                  tensors.  Per sub-level: the decrement fold over the
                  frontier's work list, which reads the wedges from the CSR
-                 (no peel table exists), then the fused state update that
-                 forms the next frontier's work list on the device.
+                 (no peel table exists) and lists the edges it touches,
+                 then the sparse state update that visits the old frontier
+                 and those edges and forms the next frontier's work list
+                 on the device; a dense pass starts each level.
   mode="chunked": torch ops over the rows of the table chunks that hold
                  frontier edges (``_active_chunk_mask``).
   mode="dense":  torch ops over the whole table every sub-level, masked.
@@ -339,36 +341,42 @@ def _peel_loop_kernel(N, Eid, S_ext, processed, csr: PeelCSR, *, m: int,
     """``_peel_loop`` for the kernel executor; updates ``S_ext`` and
     ``processed`` in place and returns them with the loop counts.
 
-    A sub-level is two launches: the decrement fold over the frontier's
-    work list, then the fused update, which applies the decrements, forms
-    the next frontier's work list and zeroes ``dec``.  The host then reads
-    ``[#frontier, #processed]`` once.  A level starts with the level value
-    ``l = min(live S)`` on the device and the same update over a zero
-    ``dec`` and an empty frontier, which forms the level's first frontier
-    (never empty: some live edge holds the minimum).
+    A level starts with the level value ``l = min(live S)`` on the device
+    and the dense update over a zero ``dec`` and an empty frontier, which
+    forms the level's first frontier (never empty: some live edge holds the
+    minimum) and counts the processed slots.  A sub-level is two launches:
+    the decrement fold over the frontier's work list, which also lists the
+    edges it touches, then the sparse update, which visits the old frontier
+    and the touched edges only and writes the next frontier's id and work
+    lists.  The frontier id lists and their counts alternate between two
+    buffers (``p``): an update reads one and writes the other.  The host
+    then reads ``[#frontier, #processed]`` once.
     """
     dev = S_ext.device
     inCurr = torch.zeros(m + 1, dtype=torch.bool, device=dev)
-    dec = torch.zeros(m + 1, dtype=torch.int32, device=dev)
-    work_e = torch.empty(csr.work_cap, dtype=torch.int32, device=dev)
-    work_j = torch.empty(csr.work_cap, dtype=torch.int32, device=dev)
-    counts = torch.zeros(4, dtype=torch.int32, device=dev)
-    work = (csr.u, csr.v, csr.Es, work_e, work_j, counts)
+    buf = peel_kernel.buffers(m, csr.work_cap, dev)
+    work = (buf.work_e, buf.work_j)
+    front, counts = buf.front.unbind(), buf.counts.unbind()
     todo = (m + 1) - int(processed.sum())
-    levels = subs = 0
+    levels = subs = p = 0
     while todo > stop_live:
         l = torch.where(processed, _SENTINEL_S, S_ext).min().reshape(1)
-        peel_kernel.sublevel_update(dec, S_ext, processed, inCurr, l, *work,
-                                    m=m)
+        peel_kernel.dense_update(buf.dec, S_ext, processed, inCurr, l, csr.u,
+                                 csr.v, csr.Es, front[p], *work, counts[p],
+                                 m=m)
         levels += 1
         while True:
             peel_kernel.peel_decrement_fold(
-                work_e, work_j, counts, l, csr.u, csr.v, csr.Es, N, Eid,
-                S_ext, processed, inCurr, pinned, m=m, dec=dec)
-            peel_kernel.sublevel_update(dec, S_ext, processed, inCurr, l,
-                                        *work, m=m)
+                *work, counts[p], l, csr.u, csr.v, csr.Es, N, Eid, S_ext,
+                processed, inCurr, pinned, m=m, dec=buf.dec,
+                touched=buf.touched)
+            peel_kernel.sublevel_update(
+                buf.dec, S_ext, processed, inCurr, l, csr.u, csr.v, csr.Es,
+                buf.touched, front[p], counts[p], front[1 - p], *work,
+                counts[1 - p], m=m)
+            p = 1 - p
             subs += 1
-            n_front, n_done = counts[1:3].tolist()
+            n_front, n_done = counts[p][1:3].tolist()
             if not n_front:
                 break
         todo = (m + 1) - n_done

@@ -4,13 +4,14 @@ The three Pallas kernels of the JAX package as CUDA C++ for ``sm_90a``,
 built with ``nvcc`` into plain-C shared libraries and called through
 ``ctypes`` (``cuda_build.py``): the support phase's oriented wedge scan
 (``support.py``, K1) and the peel phase's sub-level decrement fold with
-the fused sub-level update beside it (``peel.py``, K2) — both read their
+the sub-level updates beside it (``peel.py``, K2) — both read their
 wedges from the CSR and share the wedge intersection of
 ``csrc/wedge_common.cuh`` — and the row-wise intersect of padded id rows
 (``intersect.py``, K3), which the degree-class support path
 ``ops.compute_support_kernel`` runs.  Each wrapper launches its kernel on
 CUDA tensors and runs its plain PyTorch version on CPU tensors, and counts
-both (``COUNTS``; the update: ``peel.UPDATE_COUNTS``); ``count_launches``
+both (``COUNTS``; the updates: ``peel.UPDATE_COUNTS`` after a fold,
+``peel.DENSE_COUNTS`` at a level's start); ``count_launches``
 reads the counts of one block of work.
 """
 
@@ -19,14 +20,16 @@ import contextlib
 from repro_torch.kernels import intersect, peel, support
 from repro_torch.kernels.intersect import intersect_blocked, intersect_ref
 from repro_torch.kernels.ops import compute_support_kernel
-from repro_torch.kernels.peel import (peel_decrement_fold,
+from repro_torch.kernels.peel import (dense_update, dense_update_ref,
+                                      peel_decrement_fold,
                                       peel_decrement_fold_ref,
                                       sublevel_update, sublevel_update_ref)
 from repro_torch.kernels.support import (support_accumulate,
                                          support_accumulate_ref)
 
-__all__ = ["count_launches", "compute_support_kernel", "intersect_blocked",
-           "intersect_ref", "peel_decrement_fold", "peel_decrement_fold_ref",
+__all__ = ["count_launches", "compute_support_kernel", "dense_update",
+           "dense_update_ref", "intersect_blocked", "intersect_ref",
+           "peel_decrement_fold", "peel_decrement_fold_ref",
            "sublevel_update", "sublevel_update_ref", "support_accumulate",
            "support_accumulate_ref"]
 
@@ -37,17 +40,22 @@ def count_launches():
 
     Yields a dict that is filled when the block exits: ``{"support": n,
     "peel": n, "update": n, "intersect": n, "plain": n}`` — K1, K2, the
-    sub-level update and K3 launches, and calls of any kernel's plain
-    version.  The counts are process-global, so work on
+    sub-level updates (sparse and dense together) and K3 launches, and
+    calls of any kernel's plain version.  The counts are process-global, so work on
     other threads during the block would be counted too.
     """
-    mods = {"support": support.COUNTS, "peel": peel.COUNTS,
-            "update": peel.UPDATE_COUNTS, "intersect": intersect.COUNTS}
-    before = {k: c.as_dict() for k, c in mods.items()}
+    mods = {"support": (support.COUNTS,), "peel": (peel.COUNTS,),
+            "update": (peel.UPDATE_COUNTS, peel.DENSE_COUNTS),
+            "intersect": (intersect.COUNTS,)}
+
+    def read(field):
+        return {k: sum(getattr(c, field) for c in cs) for k, cs in
+                mods.items()}
+
+    kernel0, plain0 = read("kernel"), read("plain")
     counts: dict = {}
     yield counts
-    after = {k: c.as_dict() for k, c in mods.items()}
+    kernel1, plain1 = read("kernel"), read("plain")
     for k in mods:
-        counts[k] = after[k]["kernel"] - before[k]["kernel"]
-    counts["plain"] = sum(after[k]["plain"] - before[k]["plain"]
-                          for k in mods)
+        counts[k] = kernel1[k] - kernel0[k]
+    counts["plain"] = sum(plain1[k] - plain0[k] for k in mods)

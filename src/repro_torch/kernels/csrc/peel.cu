@@ -1,6 +1,5 @@
 // K2: one ProcessSubLevel decrement fold, frontier-driven and fed by the
-// CSR, and the fused sub-level state update that makes its next frontier;
-// sm_90a.
+// CSR, and the sub-level state updates that make its next frontier; sm_90a.
 //
 // peel_kernel replaces the Pallas kernel of the JAX package,
 // src/repro/kernels/peel.py: peel_decrement_fold (body _peel_chunk_kernel).
@@ -22,7 +21,7 @@
 //    runs from 1 to thousands of ids (7,247 at scale 17), so one item per
 //    edge would leave a hub's edges on a few SMs.  The items are made by a
 //    per-sub-level prefix over the frontier's ceil(deg_scan / slice): the
-//    update kernel below appends each new frontier edge's items with one
+//    update kernels below append each new frontier edge's items with one
 //    64-bit atomic per warp that returns both the edge and the item offset,
 //    so the list needs no separate scan pass and no host sync.
 //  * A fixed grid (the blocks the SMs can hold at once) walks the items up
@@ -44,18 +43,49 @@
 //    above 48 KB, was no faster over a scale-17 decomposition.
 //  * Integer atomicAdd folds replace the TPU's sequential accumulator, exact
 //    in any order.  Misses write nothing, so dec[m] stays 0.
+//  * The fold lists the edges it touches: an add that finds dec[e] == 0 is
+//    e's first decrement of the sub-level (dec is all zero when the fold
+//    starts), so it appends e to the touched list.  Each warp stages its
+//    ids in shared memory and copies them out 129 to 256 at a time with
+//    one counter add: a scale-17 decomposition touches tens of millions of
+//    edges, and one add per group of appending lanes (a coalesced group)
+//    serialized K2 on the single counter.  The list is not free: an add
+//    that returns the old value waits for it, where an add whose value is
+//    unused does not, so K2 takes about a quarter longer than without the
+//    list (PERF.md).  Each lane issues its up to four adds of a step
+//    together.
 //
-// update_kernel replaces the jnp body of one sub-level of the JAX package's
-// peel loop (src/repro/core/pkt.py, `sublevel`): in one pass over m + 1
-// slots it applies S <- max(S - dec, l) off the frontier, marks the frontier
-// processed, forms the next frontier S == l, appends its work items, zeroes
-// dec for the next fold and counts the processed slots.  Run with dec = 0
-// and an empty frontier it forms a level's first frontier.
+// The two update kernels replace the jnp body of one sub-level of the JAX
+// package's peel loop (src/repro/core/pkt.py, `sublevel`): S <- max(S - dec,
+// l) off the frontier, mark the frontier processed, form the next frontier
+// S == l with its id list and work items, zero dec, count the processed
+// slots.
+//  * sparse_update_kernel runs after every fold.  Within a level only an
+//    edge the fold decremented can join the next frontier: the level's
+//    first frontier holds every live edge with S == l, and the clamp keeps
+//    every other live edge at S > l.  So it visits the old frontier (marks
+//    it processed) and the touched list (applies dec, forms the next
+//    frontier), never the m + 1 slots.  The two lists are disjoint: the
+//    fold decrements only unprocessed, unpinned edges with S > l, and a
+//    frontier edge has S == l.  The processed count is the old count plus
+//    the old frontier's size, read on the device.  When the touched list
+//    holds more than m / kDenseShare edges the launch walks all slots
+//    instead (the same result): random accesses to a sixth of the slots
+//    cost more than one coalesced pass (16.2 against 13.3 us at a
+//    scale-17 middle level).  The choice reads the count on the device, so
+//    the launch keeps its shape.
+//  * dense_update_kernel passes over all m + 1 slots.  It starts a level
+//    (run with dec = 0 and an empty frontier it forms the level's first
+//    frontier and counts the processed slots), and takes any state the
+//    sparse one takes.  Its processed count is one add per block: one add
+//    per warp (8,448 at scale 17) to one address serialized the launch.
 //
 // What bounds them: per sub-level, the adjacency lists the frontier's edges
 // scan and probe, Eid of the hit slots and the state of the touched edges
-// (K2), and one pass over the (m + 1,) state (update); chip_smoke.py counts
-// those bytes and the search compares from the run's own states.
+// (K2); the old frontier's and the touched edges' state, the touched list
+// and the next frontier (sparse update); one pass over the (m + 1,) state
+// (dense update, once per level).  chip_smoke.py counts those bytes and the
+// search compares from the run's own states.
 #include "wedge_common.cuh"
 
 namespace {
@@ -65,12 +95,14 @@ constexpr int kWarps = kThreads / 32;
 // the id a lane past the end of the slice searches for (never stored)
 constexpr int kNoId = -1;
 
-// One wedge hit of frontier edge e1: candidate slot c, probe slot p.
+// One wedge hit of frontier edge e1: candidate slot c, probe slot p.  The
+// edges it decrements come back in *d2 / *d3 (-1 when none); the caller
+// issues the adds, so that a lane has all of its adds in flight at once.
 __device__ __forceinline__ void fold_hit(
     int e1, int c, int p, int l, const int* __restrict__ Eid,
     const int* __restrict__ S, const uint8_t* __restrict__ proc,
     const uint8_t* __restrict__ curr, const uint8_t* __restrict__ pin,
-    int* __restrict__ dec) {
+    int* d2, int* d3) {
   const int e2 = __ldg(Eid + c);
   const int e3 = __ldg(Eid + p);
   if (__ldg(proc + e2) || __ldg(proc + e3)) return;
@@ -78,23 +110,47 @@ __device__ __forceinline__ void fold_hit(
   const bool in3 = __ldg(curr + e3) != 0;
   const bool pin2 = pin != nullptr && __ldg(pin + e2) != 0;
   const bool pin3 = pin != nullptr && __ldg(pin + e3) != 0;
-  if (__ldg(S + e2) > l && (!in3 || e1 < e3) && !pin2) atomicAdd(dec + e2, 1);
-  if (__ldg(S + e3) > l && (!in2 || e1 < e2) && !pin3) atomicAdd(dec + e3, 1);
+  if (__ldg(S + e2) > l && (!in3 || e1 < e3) && !pin2) *d2 = e2;
+  if (__ldg(S + e3) > l && (!in2 || e1 < e2) && !pin3) *d3 = e3;
 }
 
+// A warp's staging area for the touched list in shared memory: a step
+// stages at most 4 ids a lane, and the warp copies its stage out with one
+// counter add once it holds more than kStage - 128 ids.
+constexpr int kStage = 256;
+
+// Copy the warp's n staged ids to the touched list; all 32 lanes call it.
+__device__ __forceinline__ void flush_stage(const int* stage, int n,
+                                            int* __restrict__ touched,
+                                            int* __restrict__ n_touched) {
+  __syncwarp();
+  const int lane = threadIdx.x & 31;
+  int base = 0;
+  if (lane == 0) base = atomicAdd(n_touched, n);
+  base = __shfl_sync(wedge::kFullMask, base, 0);
+  for (int j = lane; j < n; j += 32) touched[base + j] = stage[j];
+  __syncwarp();
+}
+
+// counts: int32 [n_items, n_front, n_done, n_touched]; the fold reads
+// n_items and adds its touched edges to n_touched (0 at the launch).
 __global__ void __launch_bounds__(kThreads)
 peel_kernel(const int* __restrict__ work_e, const int* __restrict__ work_j,
-            const int* __restrict__ counts, const int* __restrict__ level,
+            int* __restrict__ counts, const int* __restrict__ level,
             const int* __restrict__ u, const int* __restrict__ v,
             const int* __restrict__ Es, const int* __restrict__ N,
             const int* __restrict__ Eid, const int* __restrict__ S,
             const uint8_t* __restrict__ proc,
             const uint8_t* __restrict__ curr,
             const uint8_t* __restrict__ pin, int* __restrict__ dec,
-            int slice) {
+            int* __restrict__ touched, int slice) {
+  __shared__ int stages[kWarps][kStage];
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
+  int* stage = stages[warp];
+  int staged = 0;
   const int n_items = counts[0];
+  int* n_touched = counts + 3;
   const int l = __ldg(level);
   const int all_warps = gridDim.x * kWarps;
   for (int t = blockIdx.x * kWarps + warp; t < n_items; t += all_warps) {
@@ -113,38 +169,121 @@ peel_kernel(const int* __restrict__ work_e, const int* __restrict__ work_j,
     const int lo = swap ? a0 : b0;
     const int plen = (swap ? a1 : b1) - lo;
     const int* plist = N + lo;
-    // each lane takes two candidates a step, c and c + 32
-    for (int c = c0 + lane; c < c1; c += 64) {
-      const int cb = c + 32;
-      const int wb = cb < c1 ? __ldg(N + cb) : kNoId;
-      int sa = -1;
-      int sb = -1;
-      wedge::find2(plist, plen, __ldg(N + c), wb, &sa, &sb);
-      if (sa >= 0) fold_hit(e1, c, lo + sa, l, Eid, S, proc, curr, pin, dec);
-      if (cb < c1 && sb >= 0) {
-        fold_hit(e1, cb, lo + sb, l, Eid, S, proc, curr, pin, dec);
+    // each lane takes two candidates a step, c and c + 32; the loop test
+    // is on the warp's first candidate, so the lanes stage in step
+    for (int c = c0 + lane; c - lane < c1; c += 64) {
+      // the edges this step decrements; after the adds, only those it
+      // decrements for the first time in the sub-level
+      int first[4] = {-1, -1, -1, -1};
+      if (c < c1) {
+        const int cb = c + 32;
+        const int wb = cb < c1 ? __ldg(N + cb) : kNoId;
+        int sa = -1;
+        int sb = -1;
+        wedge::find2(plist, plen, __ldg(N + c), wb, &sa, &sb);
+        if (sa >= 0) {
+          fold_hit(e1, c, lo + sa, l, Eid, S, proc, curr, pin, &first[0],
+                   &first[1]);
+        }
+        if (cb < c1 && sb >= 0) {
+          fold_hit(e1, cb, lo + sb, l, Eid, S, proc, curr, pin, &first[2],
+                   &first[3]);
+        }
       }
+      // the adds; one that finds dec == 0 is the edge's first decrement
+      int old[4];
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        old[k] = first[k] >= 0 ? atomicAdd(dec + first[k], 1) : 1;
+      }
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        if (old[k] != 0) first[k] = -1;
+      }
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        const unsigned ballot = __ballot_sync(wedge::kFullMask,
+                                              first[k] >= 0);
+        if (first[k] >= 0) {
+          stage[staged + __popc(ballot & ((1u << lane) - 1u))] = first[k];
+        }
+        staged += __popc(ballot);
+      }
+      if (staged > kStage - 128) {
+        flush_stage(stage, staged, touched, n_touched);
+        staged = 0;
+      }
+    }
+  }
+  if (staged > 0) flush_stage(stage, staged, touched, n_touched);
+}
+
+// The next frontier's bookkeeping for one warp step: lanes with `next` set
+// append edge e, its id to front and its `items` work items, with one
+// 64-bit atomic on out[0:2] (n_front high, n_items low) for the warp.  All
+// 32 lanes must call it.
+__device__ __forceinline__ void append_next(bool next, int e, int items,
+                                            int* __restrict__ front,
+                                            int* __restrict__ work_e,
+                                            int* __restrict__ work_j,
+                                            int* __restrict__ out) {
+  const unsigned ballot = __ballot_sync(wedge::kFullMask, next);
+  if (ballot == 0u) return;
+  const int lane = threadIdx.x & 31;
+  // inclusive prefix of the lanes' item counts
+  int incl = items;
+  for (int o = 1; o < 32; o <<= 1) {
+    const int t = __shfl_up_sync(wedge::kFullMask, incl, o);
+    if (lane >= o) incl += t;
+  }
+  const int total = __shfl_sync(wedge::kFullMask, incl, 31);
+  unsigned long long base = 0;
+  if (lane == 0) {
+    const unsigned long long add =
+        (static_cast<unsigned long long>(__popc(ballot)) << 32) |
+        static_cast<unsigned>(total);
+    base = atomicAdd(reinterpret_cast<unsigned long long*>(out), add);
+  }
+  base = __shfl_sync(wedge::kFullMask, base, 0);
+  if (next) {
+    const unsigned below = ballot & ((1u << lane) - 1u);
+    front[static_cast<int>(base >> 32) + __popc(below)] = e;
+    const int first = static_cast<int>(base & 0xffffffffULL) + incl - items;
+    for (int k = 0; k < items; ++k) {
+      work_e[first + k] = e;
+      work_j[first + k] = k;
     }
   }
 }
 
-// counts: int32 [n_items, n_front, n_done, unused]; the first two form one
-// little-endian 64-bit word (n_front high, n_items low), zeroed before the
-// launch.
-__global__ void __launch_bounds__(kThreads)
-update_kernel(int* __restrict__ dec, int* __restrict__ S,
-              uint8_t* __restrict__ proc, uint8_t* __restrict__ curr,
-              const int* __restrict__ level, const int* __restrict__ u,
-              const int* __restrict__ v, const int* __restrict__ Es,
-              int* __restrict__ work_e, int* __restrict__ work_j,
-              int* __restrict__ counts, int m, int slice) {
-  const int l = __ldg(level);
+// Work items of edge e: ceil(scan side / slice).
+__device__ __forceinline__ int edge_items(int e, const int* __restrict__ u,
+                                          const int* __restrict__ v,
+                                          const int* __restrict__ Es,
+                                          int slice) {
+  const int a = __ldg(u + e);
+  const int b = __ldg(v + e);
+  const int da = __ldg(Es + a + 1) - __ldg(Es + a);
+  const int db = __ldg(Es + b + 1) - __ldg(Es + b);
+  return (min(da, db) + slice - 1) / slice;
+}
+
+// One pass over all m + 1 slots: S <- max(S - dec, l) off the frontier,
+// the frontier marked processed, the next frontier formed and appended,
+// dec zeroed.  Returns the lane's processed slots.  All threads of the grid
+// call it.
+__device__ __forceinline__ unsigned dense_walk(
+    int* __restrict__ dec, int* __restrict__ S, uint8_t* __restrict__ proc,
+    uint8_t* __restrict__ curr, int l, const int* __restrict__ u,
+    const int* __restrict__ v, const int* __restrict__ Es,
+    int* __restrict__ front, int* __restrict__ work_e,
+    int* __restrict__ work_j, int* __restrict__ out, int m, int slice) {
   const int lane = threadIdx.x & 31;
   const long long slots = static_cast<long long>(m) + 1;
   const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
   unsigned done = 0;
   // the loop test is on the warp's first slot, so all 32 lanes run the same
-  // number of iterations and the warp-wide intrinsics below see every lane
+  // number of iterations and append_next sees every lane
   for (long long i = static_cast<long long>(blockIdx.x) * blockDim.x +
                      threadIdx.x;
        i - lane < slots; i += stride) {
@@ -164,76 +303,140 @@ update_kernel(int* __restrict__ dec, int* __restrict__ S,
       if (next != c) curr[i] = next ? 1 : 0;
       if (d != 0) dec[i] = 0;
       done += (p || c) ? 1u : 0u;
-      if (next) {
-        const int a = __ldg(u + i);
-        const int b = __ldg(v + i);
-        const int da = __ldg(Es + a + 1) - __ldg(Es + a);
-        const int db = __ldg(Es + b + 1) - __ldg(Es + b);
-        const int scan = min(da, db);
-        items = (scan + slice - 1) / slice;
-      }
+      if (next) items = edge_items(static_cast<int>(i), u, v, Es, slice);
     }
-    const unsigned ballot = __ballot_sync(wedge::kFullMask, next);
-    if (ballot == 0u) continue;
-    // inclusive prefix of the lanes' item counts
-    int incl = items;
-    for (int o = 1; o < 32; o <<= 1) {
-      const int t = __shfl_up_sync(wedge::kFullMask, incl, o);
-      if (lane >= o) incl += t;
-    }
-    const int total = __shfl_sync(wedge::kFullMask, incl, 31);
-    unsigned long long base = 0;
-    if (lane == 0) {
-      const unsigned long long add =
-          (static_cast<unsigned long long>(__popc(ballot)) << 32) |
-          static_cast<unsigned>(total);
-      base = atomicAdd(reinterpret_cast<unsigned long long*>(counts), add);
-    }
-    base = __shfl_sync(wedge::kFullMask, base, 0);
-    if (next) {
-      const int first = static_cast<int>(base & 0xffffffffULL) + incl - items;
-      for (int k = 0; k < items; ++k) {
-        work_e[first + k] = static_cast<int>(i);
-        work_j[first + k] = k;
-      }
-    }
+    append_next(next, static_cast<int>(i), items, front, work_e, work_j,
+                out);
   }
+  return done;
+}
+
+// The sparse kernel walks all slots instead when the touched list holds
+// more than m / kDenseShare edges.
+constexpr int kDenseShare = 8;
+
+// in / out: int32 [n_items, n_front, n_done, n_touched] of this sub-level
+// (read) and of the next (zeroed before the launch, written).
+__global__ void __launch_bounds__(kThreads)
+sparse_update_kernel(int* __restrict__ dec, int* __restrict__ S,
+                     uint8_t* __restrict__ proc, uint8_t* __restrict__ curr,
+                     const int* __restrict__ level, const int* __restrict__ u,
+                     const int* __restrict__ v, const int* __restrict__ Es,
+                     const int* __restrict__ touched,
+                     const int* __restrict__ front_in,
+                     const int* __restrict__ in, int* __restrict__ front_out,
+                     int* __restrict__ work_e, int* __restrict__ work_j,
+                     int* __restrict__ out, int m, int slice) {
+  const int l = __ldg(level);
+  const int lane = threadIdx.x & 31;
+  const int n_front = in[1];
+  const int n_touched = in[3];
+  const int tid = blockIdx.x * blockDim.x + threadIdx.x;
+  const int stride = gridDim.x * blockDim.x;
+  if (tid == 0) out[2] = in[2] + n_front;
+  if (n_touched > m / kDenseShare) {
+    dense_walk(dec, S, proc, curr, l, u, v, Es, front_out, work_e, work_j,
+               out, m, slice);
+    return;
+  }
+  for (int i = tid; i < n_front; i += stride) {
+    const int e = __ldg(front_in + i);
+    proc[e] = 1;
+    curr[e] = 0;
+  }
+  // the loop test is on the warp's first item, so all 32 lanes run the
+  // same number of iterations and append_next sees every lane
+  for (int t = tid; t - lane < n_touched; t += stride) {
+    bool next = false;
+    int e = 0;
+    int items = 0;
+    if (t < n_touched) {
+      e = __ldg(touched + t);
+      const int s = max(S[e] - dec[e], l);
+      S[e] = s;
+      dec[e] = 0;
+      next = s == l;
+      if (next) {
+        curr[e] = 1;
+        items = edge_items(e, u, v, Es, slice);
+      }
+    }
+    append_next(next, e, items, front_out, work_e, work_j, out);
+  }
+}
+
+// out: as for the sparse kernel, zeroed before the launch.
+__global__ void __launch_bounds__(kThreads)
+dense_update_kernel(int* __restrict__ dec, int* __restrict__ S,
+                    uint8_t* __restrict__ proc, uint8_t* __restrict__ curr,
+                    const int* __restrict__ level, const int* __restrict__ u,
+                    const int* __restrict__ v, const int* __restrict__ Es,
+                    int* __restrict__ front, int* __restrict__ work_e,
+                    int* __restrict__ work_j, int* __restrict__ out, int m,
+                    int slice) {
+  __shared__ unsigned block_done;
+  if (threadIdx.x == 0) block_done = 0u;
+  __syncthreads();
+  unsigned done = dense_walk(dec, S, proc, curr, __ldg(level), u, v, Es,
+                             front, work_e, work_j, out, m, slice);
   done = __reduce_add_sync(wedge::kFullMask, done);
-  if (lane == 0 && done != 0u) atomicAdd(counts + 2, static_cast<int>(done));
+  if ((threadIdx.x & 31) == 0 && done != 0u) atomicAdd(&block_done, done);
+  __syncthreads();
+  if (threadIdx.x == 0 && block_done != 0u) {
+    atomicAdd(out + 2, static_cast<int>(block_done));
+  }
 }
 
 }  // namespace
 
 extern "C" int peel_decrement_fold_launch(
-    const int* work_e, const int* work_j, const int* counts, const int* level,
+    const int* work_e, const int* work_j, int* counts, const int* level,
     const int* u, const int* v, const int* Es, const int* N, const int* Eid,
     const int* S, const uint8_t* proc, const uint8_t* curr,
-    const uint8_t* pin, int* dec, int slice, void* stream) {
+    const uint8_t* pin, int* dec, int* touched, int slice, void* stream) {
   if (slice <= 0) return static_cast<int>(cudaErrorInvalidValue);
   static wedge::GridCache grid;
   const int blocks = wedge::resident_grid(grid, peel_kernel, kThreads, 0);
   peel_kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       work_e, work_j, counts, level, u, v, Es, N, Eid, S, proc, curr, pin,
-      dec, slice);
+      dec, touched, slice);
   return static_cast<int>(cudaGetLastError());
 }
 
-extern "C" int sublevel_update_launch(
+extern "C" int sparse_update_launch(
     int* dec, int* S, uint8_t* proc, uint8_t* curr, const int* level,
-    const int* u, const int* v, const int* Es, int* work_e, int* work_j,
-    int* counts, int m, int slice, void* stream) {
+    const int* u, const int* v, const int* Es, const int* touched,
+    const int* front_in, const int* in, int* front_out, int* work_e,
+    int* work_j, int* out, int m, int slice, void* stream) {
   if (m < 0 || slice <= 0) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err = cudaMemsetAsync(counts, 0, 3 * sizeof(int), s);
+  cudaError_t err = cudaMemsetAsync(out, 0, 4 * sizeof(int), s);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  static wedge::GridCache grid;
+  const int blocks = wedge::resident_grid(grid, sparse_update_kernel,
+                                          kThreads, 0);
+  sparse_update_kernel<<<blocks, kThreads, 0, s>>>(
+      dec, S, proc, curr, level, u, v, Es, touched, front_in, in, front_out,
+      work_e, work_j, out, m, slice);
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int dense_update_launch(
+    int* dec, int* S, uint8_t* proc, uint8_t* curr, const int* level,
+    const int* u, const int* v, const int* Es, int* front, int* work_e,
+    int* work_j, int* out, int m, int slice, void* stream) {
+  if (m < 0 || slice <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err = cudaMemsetAsync(out, 0, 4 * sizeof(int), s);
   if (err != cudaSuccess) return static_cast<int>(err);
   const long long need = (static_cast<long long>(m) + kThreads) / kThreads;
   static wedge::GridCache grid;
-  const long long cap = wedge::resident_grid(grid, update_kernel, kThreads,
-                                             0);
+  const long long cap = wedge::resident_grid(grid, dense_update_kernel,
+                                             kThreads, 0);
   const int blocks = static_cast<int>(need < cap ? need : cap);
-  update_kernel<<<blocks, kThreads, 0, s>>>(dec, S, proc, curr, level, u, v,
-                                            Es, work_e, work_j, counts, m,
-                                            slice);
+  dense_update_kernel<<<blocks, kThreads, 0, s>>>(dec, S, proc, curr, level,
+                                                  u, v, Es, front, work_e,
+                                                  work_j, out, m, slice);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -43,14 +43,15 @@ _SIGNATURES = {
         "support_error_string": ([_INT], ctypes.c_char_p),
     },
     "peel": {
-        "peel_decrement_fold_launch": ([_VOID] * 14 + [_INT, _VOID], _INT),
-        "sublevel_update_launch": ([_VOID] * 11 + [_INT, _INT, _VOID], _INT),
+        "peel_decrement_fold_launch": ([_VOID] * 15 + [_INT, _VOID], _INT),
+        "sparse_update_launch": ([_VOID] * 15 + [_INT, _INT, _VOID], _INT),
+        "dense_update_launch": ([_VOID] * 12 + [_INT, _INT, _VOID], _INT),
         "peel_error_string": ([_INT], ctypes.c_char_p),
     },
     "intersect": {
-        "intersect_i32_launch": ([_VOID] * 5 + [_LL, _INT, _INT, _INT, _VOID],
+        "intersect_i32_launch": ([_VOID] * 6 + [_LL, _INT, _INT, _INT, _VOID],
                                  _INT),
-        "intersect_i16_launch": ([_VOID] * 5 + [_LL, _INT, _INT, _INT, _VOID],
+        "intersect_i16_launch": ([_VOID] * 6 + [_LL, _INT, _INT, _INT, _VOID],
                                  _INT),
         "intersect_error_string": ([_INT], ctypes.c_char_p),
     },

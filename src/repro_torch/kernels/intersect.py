@@ -1,4 +1,4 @@
-"""K3: row-wise set intersection of padded id rows (all-pairs equality).
+"""K3: row-wise set intersection of padded id rows.
 
 The port of the JAX package's Pallas kernel ``repro/kernels/intersect.py:
 intersect_blocked``.  For rows ``a`` (E, DA) and ``b`` (E, DB) of vertex
@@ -9,17 +9,20 @@ never matches — it returns, all int32:
   hit_a  (E, DA)   1 where an ``a`` slot equals some ``b`` slot of its row
   hit_b  (E, DB)   1 where a ``b`` slot equals some ``a`` slot of its row
 
-Every pair is compared, so the rows need not be sorted and may repeat ids.
-The hit masks let ``ops.compute_support_kernel`` add support at the edge
-ids of the matching adjacency slots.
+The rows need not be sorted and may repeat ids.  The hit masks let
+``ops.compute_support_kernel`` add support at the edge ids of the matching
+adjacency slots.
 
 ``intersect_blocked`` launches the CUDA kernel ``csrc/intersect.cu`` (int32
 and int16 ids) on CUDA tensors and runs ``intersect_ref``, its plain
-PyTorch version, on CPU tensors — and only there.
+PyTorch version, on CPU tensors — and only there.  The kernel picks a path
+per row from the data: a ``b`` row of at most four non-decreasing runs (a
+CSR row and its padding are two) is binary-searched, any other row is
+compared all-pairs.  ``path_rows`` reads how many rows took each path.
 
-Bound at the degree-class buckets of Graph500 scale 17: 6.32e10 compares,
-about 3.8 ms at the H100's int32 rate, against a 1.33 ms byte floor — see
-the kernel's source note and PERF.md.
+Bound at the degree-class buckets of Graph500 scale 17: 4.43 GB of reads
+and writes, about 1.33 ms at the H100's 3.35 TB/s — see the kernel's source
+note and PERF.md.
 """
 
 from __future__ import annotations
@@ -41,6 +44,30 @@ _MAX_SMEM = 232448
 
 #: the plain version compares at most this many pairs per slice of rows
 _REF_PAIRS = 1 << 26
+
+#: the kernel's per-path row counts by device: int64 [searched, all-pairs]
+_PATH_ROWS: dict = {}
+
+
+def _device_key(device) -> str:
+    dev = torch.device(device)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    return str(dev)
+
+
+def path_rows(device) -> dict:
+    """Rows the kernel took on each path on ``device`` since the last
+    ``reset_path_rows``: ``{"search": n, "all_pairs": n}`` (a host sync)."""
+    rows = _PATH_ROWS.get(_device_key(device))
+    search, all_pairs = (0, 0) if rows is None else rows.tolist()
+    return {"search": search, "all_pairs": all_pairs}
+
+
+def reset_path_rows() -> None:
+    """Set every device's per-path row counts to 0."""
+    for rows in _PATH_ROWS.values():
+        rows.zero_()
 
 
 def _check_rows(a, b) -> None:
@@ -83,12 +110,16 @@ def intersect_blocked(a, b, *, block_rows: int = 256):
     hitb = torch.empty((E, DB), dtype=torch.int32, device=dev)
     if E == 0:
         return cnt, hita, hitb
+    key = _device_key(dev)
+    if key not in _PATH_ROWS:
+        _PATH_ROWS[key] = torch.zeros(2, dtype=torch.int64, device=dev)
     lib = cuda_build.library("intersect")
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         code = getattr(lib, _LAUNCH[a.dtype])(
             a.data_ptr(), b.data_ptr(), cnt.data_ptr(), hita.data_ptr(),
-            hitb.data_ptr(), E, DA, DB, block_rows, stream)
+            hitb.data_ptr(), _PATH_ROWS[key].data_ptr(), E, DA, DB,
+            block_rows, stream)
     cuda_build.check_launch(lib, "intersect", code)
     COUNTS.kernel += 1
     return cnt, hita, hitb

@@ -25,10 +25,11 @@ from repro_torch.kernels.intersect import intersect_blocked
 _DEG_CLASSES = (8, 16, 32, 64, 128, 256)
 
 
-def _block_rows_for(d: int) -> int:
-    """Rows per thread block of K3 for row width ``d`` (the JAX package's
-    VMEM-sized row block, kept so both run the same blocking)."""
-    return int(max(8, min(1024, (1 << 22) // max(d * d, 1))))
+#: rows per thread block of K3: two for each of the kernel's eight warps, so
+#: the smallest buckets (a few thousand rows at Graph500 scale 17) still fill
+#: the card; the JAX package's VMEM-sized block (up to 1,024 rows) left them
+#: on a few SMs.  No result depends on it.
+BLOCK_ROWS = 16
 
 
 def _gather_rows(N, Eid, start, length, D: int):
@@ -64,8 +65,7 @@ def _bucket_support(S, N, Eid, u_start, u_len, v_start, v_len, e1,
     """Add one degree-class bucket's support contributions to ``S`` (m,)."""
     rows_a, eids_a, rows_b, eids_b = bucket_rows(N, Eid, u_start, u_len,
                                                  v_start, v_len, D)
-    cnt, hita, hitb = intersect_blocked(rows_a, rows_b,
-                                        block_rows=_block_rows_for(D))
+    cnt, hita, hitb = intersect_blocked(rows_a, rows_b, block_rows=BLOCK_ROWS)
     del rows_a, rows_b
     S.index_add_(0, e1, cnt)
     _add_hits(S, eids_a, hita)

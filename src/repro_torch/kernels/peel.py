@@ -1,4 +1,5 @@
-"""K2: one ProcessSubLevel decrement fold, fed by the CSR and the frontier.
+"""K2: one ProcessSubLevel decrement fold, fed by the CSR and the frontier,
+and the sub-level state updates around it.
 
 The port of the JAX package's Pallas kernel ``repro/kernels/peel.py:
 peel_decrement_fold``.  At level ``l`` every wedge of a frontier edge ``e1 =
@@ -9,37 +10,76 @@ rows that the JAX package's peel table holds for ``e1``.  A hit whose edges
 ``dec[e2]`` when ``S[e2] > l``, ``e2`` is not pinned, and ``e3`` is off the
 frontier or ``e1 < e3`` (the paper's lowest-id tie-break: of two frontier
 edges sharing a triangle, the lower id processes it); ``e3`` symmetrically.
+The fold also lists the edges it decrements (the *touched* list).
 
 The frontier reaches the fold as a *work list*: one item ``(work_e[t],
 work_j[t])`` per slice of ``WORK_SLICE`` candidates of a frontier edge, so
-an edge with a long scan side is spread over many warps.  ``counts`` is the
-(4,) int32 device buffer ``[n_items, n_front, n_done, 0]``.  The list's
-order does not matter (integer sums are order-free).  ``sublevel_update``
-makes the list on the device; ``frontier_work`` makes it from any frontier
-list with torch ops.
+an edge with a long scan side is spread over many warps.  ``counts`` is a
+(4,) int32 device buffer ``[n_items, n_front, n_done, n_touched]``.  The
+list's order does not matter (integer sums are order-free).  The update
+kernels make the list on the device; ``frontier_work`` makes it from any
+frontier list with torch ops.
 
-Both entry points launch their CUDA kernel (``csrc/peel.cu``) on CUDA
-tensors, with the level ``l`` and the item count read on the device, so
-neither needs a host sync; on CPU tensors — and only there — they run their
-plain PyTorch versions ``peel_decrement_fold_ref`` / ``sublevel_update_ref``.
-Output of the fold: ``dec`` (m+1,) int32, read ``dec[:m]``; ``dec[m]`` stays
-0.  Masks (``processed``/``inCurr``/``pinned``, (m+1,)) travel as bytes
-(bool or uint8); ``pinned=None`` means no schedule edges.
+A sub-level of the kernel path is the fold, then ``sublevel_update``: the
+sparse update, which visits only the old frontier (``front_in``) and the
+touched edges, and writes the next frontier as a flag, an id list
+(``front_out``) and a work list.  It is right on the states the peel
+reaches: within a level every live edge off the frontier has ``S > l``, so
+only a decremented edge can reach ``S == l``.  A level starts with
+``dense_update``, one pass over the ``m + 1`` slots, which forms the level's
+first frontier (and takes any state the sparse update takes).  The frontier
+id list is read while the next one is written, so the caller double-buffers
+it and ``counts``: ``buffers`` allocates them.
+
+Every entry point launches its CUDA kernel (``csrc/peel.cu``) on CUDA
+tensors, with the level ``l`` and the counts read on the device, so none
+needs a host sync; on CPU tensors — and only there — it runs its plain
+PyTorch version (``*_ref``).  Output of the fold: ``dec`` (m+1,) int32, read
+``dec[:m]``; ``dec[m]`` stays 0.  Masks (``processed``/``inCurr``/
+``pinned``, (m+1,)) travel as bytes (bool or uint8); ``pinned=None`` means
+no schedule edges.
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import torch
 
 from repro_torch.kernels import cuda_build, wedge_common
 
 #: launches of the CUDA kernels / calls of their plain versions: the fold
-#: (K2) and the sub-level update
+#: (K2), the sparse update after each fold and the dense update of a
+#: level's start
 COUNTS = cuda_build.LaunchCounts()
 UPDATE_COUNTS = cuda_build.LaunchCounts()
+DENSE_COUNTS = cuda_build.LaunchCounts()
 
 #: candidates of one work item (one warp of K2 takes one item; two per lane)
 WORK_SLICE = 64
+
+
+class Buffers(NamedTuple):
+    """The kernel path's device buffers for an edge space of ``m`` slots."""
+
+    dec: torch.Tensor      # (m+1,) int32, zero between sub-levels
+    touched: torch.Tensor  # (m,) int32, the fold's touched edges
+    front: torch.Tensor    # (2, m+1) int32, frontier id lists (double buffer)
+    work_e: torch.Tensor   # (work_cap,) int32
+    work_j: torch.Tensor   # (work_cap,) int32
+    counts: torch.Tensor   # (2, 4) int32, one row per frontier list
+
+
+def buffers(m: int, work_cap: int, device) -> Buffers:
+    """Allocate the kernel path's buffers (``dec`` and ``counts`` zeroed)."""
+    def empty(*shape):
+        return torch.empty(shape, dtype=torch.int32, device=device)
+
+    return Buffers(dec=torch.zeros(m + 1, dtype=torch.int32, device=device),
+                   touched=empty(m), front=empty(2, m + 1),
+                   work_e=empty(work_cap), work_j=empty(work_cap),
+                   counts=torch.zeros((2, 4), dtype=torch.int32,
+                                      device=device))
 
 
 def work_capacity(m: int, table_size: int) -> int:
@@ -85,32 +125,62 @@ def frontier_work(front, u, v, Es, work_e, work_j, counts) -> int:
     return n
 
 
+def _launch(name: str, fn: str, *args) -> None:
+    """Call ``fn`` of library ``name`` on the current stream; raise on a
+    launch error.  Tensors pass as their data pointers."""
+    lib = cuda_build.library(name)
+    dev = next(a.device for a in args if isinstance(a, torch.Tensor))
+    ptrs = [a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args]
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        code = getattr(lib, fn)(*ptrs, stream)
+    cuda_build.check_launch(lib, name, code)
+
+
+def _check_edges(dev, l, u, v, Es, m: int) -> None:
+    cuda_build.check_int32("l", l, dev, (1,))
+    cuda_build.check_int32("u", u, dev)
+    cuda_build.check_int32("v", v, dev, tuple(u.shape))
+    if u.shape[0] < m:
+        raise ValueError(f"u has {u.shape[0]} edges, expected >= {m}")
+    cuda_build.check_int32("Es", Es, dev)
+
+
+def _check_state(dev, dec, S_ext, processed, inCurr, m: int) -> None:
+    for name, t in (("dec", dec), ("S_ext", S_ext)):
+        cuda_build.check_int32(name, t, dev, (m + 1,))
+    for name, t in (("processed", processed), ("inCurr", inCurr)):
+        cuda_build.check_mask(name, t, dev, (m + 1,))
+
+
+def _check_work(dev, work_e, work_j) -> None:
+    cap = work_e.shape[0]
+    cuda_build.check_int32("work_e", work_e, dev, (cap,))
+    cuda_build.check_int32("work_j", work_j, dev, (cap,))
+
+
 def peel_decrement_fold(work_e, work_j, counts, l, u, v, Es, N, Eid, S_ext,
                         processed, inCurr, pinned=None, *, m: int,
-                        dec=None):
-    """Decrement vector of one sub-level at level ``l`` → (m+1,) int32.
+                        dec=None, touched=None):
+    """Decrements of one sub-level at level ``l`` → ``(dec, touched)``.
 
     ``work_e``/``work_j``/``counts``: the frontier's work list (module
     docstring); ``l`` (1,) int32; ``u``/``v`` (>= m,) edge endpoints;
     ``Es`` CSR offsets; ``N``/``Eid`` (two_m,); ``S_ext`` (m+1,) int32.
-    ``dec``: an all-zero (m+1,) int32 buffer to fold into (allocated when
-    None).
+    ``dec``: an all-zero (m+1,) int32 buffer to fold into; ``touched``: an
+    (m,) int32 list that receives the decremented edges, their number
+    added to ``counts[3]`` (0 on entry); both allocated when None.
     """
     dev = S_ext.device
     if dev.type == "cpu":
         return peel_decrement_fold_ref(
             work_e, work_j, counts, l, u, v, Es, N, Eid, S_ext, processed,
-            inCurr, pinned, m=m, dec=dec)
+            inCurr, pinned, m=m, dec=dec, touched=touched)
     if dev.type != "cuda":
         raise ValueError(f"peel_decrement_fold: unsupported device {dev}")
-    cap = work_e.shape[0]
-    cuda_build.check_int32("work_e", work_e, dev, (cap,))
-    cuda_build.check_int32("work_j", work_j, dev, (cap,))
+    _check_work(dev, work_e, work_j)
     cuda_build.check_int32("counts", counts, dev, (4,))
-    cuda_build.check_int32("l", l, dev, (1,))
-    cuda_build.check_int32("u", u, dev)
-    cuda_build.check_int32("v", v, dev, tuple(u.shape))
-    cuda_build.check_int32("Es", Es, dev)
+    _check_edges(dev, l, u, v, Es, 0)
     two_m = N.shape[0]
     cuda_build.check_int32("N", N, dev, (two_m,))
     cuda_build.check_int32("Eid", Eid, dev, (two_m,))
@@ -121,22 +191,17 @@ def peel_decrement_fold(work_e, work_j, counts, l, u, v, Es, N, Eid, S_ext,
         cuda_build.check_mask("pinned", pinned, dev, (m + 1,))
     if dec is None:
         dec = torch.zeros(m + 1, dtype=torch.int32, device=dev)
+    if touched is None:
+        touched = torch.empty(m, dtype=torch.int32, device=dev)
     cuda_build.check_int32("dec", dec, dev, (m + 1,))
-    if two_m == 0 or cap == 0:
-        return dec
-    lib = cuda_build.library("peel")
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        code = lib.peel_decrement_fold_launch(
-            work_e.data_ptr(), work_j.data_ptr(), counts.data_ptr(),
-            l.data_ptr(), u.data_ptr(), v.data_ptr(), Es.data_ptr(),
-            N.data_ptr(), Eid.data_ptr(), S_ext.data_ptr(),
-            processed.data_ptr(), inCurr.data_ptr(),
-            None if pinned is None else pinned.data_ptr(), dec.data_ptr(),
-            WORK_SLICE, stream)
-    cuda_build.check_launch(lib, "peel", code)
+    cuda_build.check_int32("touched", touched, dev, (m,))
+    if two_m == 0 or work_e.shape[0] == 0:
+        return dec, touched
+    _launch("peel", "peel_decrement_fold_launch", work_e, work_j, counts, l,
+            u, v, Es, N, Eid, S_ext, processed, inCurr, pinned, dec, touched,
+            WORK_SLICE)
     COUNTS.kernel += 1
-    return dec
+    return dec, touched
 
 
 def decrement_rows(dec, e1, cand, lo, hi, N, Eid, S_ext, processed, inCurr,
@@ -163,21 +228,24 @@ def decrement_rows(dec, e1, cand, lo, hi, N, Eid, S_ext, processed, inCurr,
 
 def peel_decrement_fold_ref(work_e, work_j, counts, l, u, v, Es, N, Eid,
                             S_ext, processed, inCurr, pinned=None, *, m: int,
-                            dec=None):
+                            dec=None, touched=None):
     """Plain PyTorch version of ``peel_decrement_fold`` (same contract).
 
     Expands the work items into their wedge rows with torch ops, in slices
     of ``wedge_common.SLICE_ROWS`` rows, and folds them with
     ``decrement_rows``; the search runs enough halvings for the longest
-    probe list, so it finds the exact lower bound.
+    probe list, so it finds the exact lower bound.  The touched list comes
+    out as ``nonzero(dec)``, in ascending order.
     """
     COUNTS.plain += 1
     dev = S_ext.device
     if dec is None:
         dec = torch.zeros(m + 1, dtype=torch.int32, device=dev)
+    if touched is None:
+        touched = torch.empty(m, dtype=torch.int32, device=dev)
     n = int(counts[0])
     if n == 0 or N.shape[0] == 0:
-        return dec
+        return dec, touched
     e = work_e[:n].long()
     s0, n_scan, lo, hi = _scan_probe(e, u, v, Es)
     start = s0 + work_j[:n] * WORK_SLICE
@@ -195,7 +263,10 @@ def peel_decrement_fold_ref(work_e, work_j, counts, l, u, v, Es, N, Eid,
             torch.int32)
         decrement_rows(dec, e[item], cand, lo[item], hi[item], N, Eid, S_ext,
                        proc, curr, pin, lv, iters=iters)
-    return dec
+    hit = torch.nonzero(dec[:m])[:, 0].to(torch.int32)
+    touched[:hit.shape[0]] = hit
+    counts[3] = hit.shape[0]
+    return dec, touched
 
 
 def apply_decrements(dec, S_ext, processed, inCurr, l, m: int):
@@ -214,58 +285,110 @@ def apply_decrements(dec, S_ext, processed, inCurr, l, m: int):
     return nxt
 
 
-def sublevel_update(dec, S_ext, processed, inCurr, l, u, v, Es, work_e,
-                    work_j, counts, *, m: int) -> None:
-    """Fused sub-level update, in place (see ``apply_decrements``).
+def _next_frontier(nxt_ids, u, v, Es, front, work_e, work_j, counts) -> None:
+    """Write the next frontier ``nxt_ids`` (ascending) as an id list and a
+    work list; ``counts[:2] = [n_items, n_front]``."""
+    front[:nxt_ids.shape[0]] = nxt_ids
+    frontier_work(nxt_ids, u, v, Es, work_e, work_j, counts)
 
-    Also writes the next frontier's work list into ``work_e``/``work_j``,
-    ``counts = [n_items, n_front, n_done, 0]`` (``n_done``: processed slots
-    of the m+1) and zeroes ``dec``.  With ``dec`` all zero and ``inCurr``
-    empty it forms the first frontier of level ``l``.  ``processed`` and
-    ``inCurr`` are bool.
+
+def dense_update(dec, S_ext, processed, inCurr, l, u, v, Es, front, work_e,
+                 work_j, counts, *, m: int) -> None:
+    """One sub-level's state update over all ``m + 1`` slots, in place (see
+    ``apply_decrements``).
+
+    Also writes the next frontier's id list into ``front`` ((m+1,) int32)
+    and its work list into ``work_e``/``work_j``, sets ``counts = [n_items,
+    n_front, n_done, 0]`` (``n_done``: processed slots of the m+1) and
+    zeroes ``dec``.  With ``dec`` all zero and ``inCurr`` empty it forms the
+    first frontier of level ``l``.  ``processed`` and ``inCurr`` are bool.
+    """
+    dev = S_ext.device
+    if dev.type == "cpu":
+        dense_update_ref(dec, S_ext, processed, inCurr, l, u, v, Es, front,
+                         work_e, work_j, counts, m=m)
+        return
+    if dev.type != "cuda":
+        raise ValueError(f"dense_update: unsupported device {dev}")
+    _check_state(dev, dec, S_ext, processed, inCurr, m)
+    _check_edges(dev, l, u, v, Es, m)
+    cuda_build.check_int32("front", front, dev, (m + 1,))
+    _check_work(dev, work_e, work_j)
+    cuda_build.check_int32("counts", counts, dev, (4,))
+    _launch("peel", "dense_update_launch", dec, S_ext, processed, inCurr, l,
+            u, v, Es, front, work_e, work_j, counts, m, WORK_SLICE)
+    DENSE_COUNTS.kernel += 1
+
+
+def dense_update_ref(dec, S_ext, processed, inCurr, l, u, v, Es, front,
+                     work_e, work_j, counts, *, m: int) -> None:
+    """Plain PyTorch version of ``dense_update`` (same contract); the id
+    and work lists come out in ascending edge order."""
+    DENSE_COUNTS.plain += 1
+    nxt = apply_decrements(dec, S_ext, processed, inCurr, l.reshape(()), m)
+    inCurr.copy_(nxt)
+    dec.zero_()
+    _next_frontier(torch.nonzero(nxt)[:, 0].to(torch.int32), u, v, Es, front,
+                   work_e, work_j, counts)
+    counts[2] = processed.sum()
+    counts[3] = 0
+
+
+def sublevel_update(dec, S_ext, processed, inCurr, l, u, v, Es, touched,
+                    front_in, counts_in, front_out, work_e, work_j,
+                    counts_out, *, m: int) -> None:
+    """The sub-level update after a fold, visiting only the old frontier
+    and the touched edges, in place.
+
+    Reads the old frontier ``front_in[:counts_in[1]]`` and the fold's
+    touched list ``touched[:counts_in[3]]``: marks the old frontier
+    processed and off the frontier, applies ``S ← max(S − dec, l)`` and
+    ``dec ← 0`` to the touched edges, and puts each touched edge that
+    reaches ``S == l`` on the next frontier (``inCurr``, ``front_out``, the
+    work list).  ``counts_out = [n_items, n_front, n_done + n_front_in,
+    0]``.  Equal to ``dense_update`` on the states the peel reaches: within
+    a level every live edge off the frontier has ``S > l``, so no edge off
+    both lists can join the next frontier.
     """
     dev = S_ext.device
     if dev.type == "cpu":
         sublevel_update_ref(dec, S_ext, processed, inCurr, l, u, v, Es,
-                            work_e, work_j, counts, m=m)
+                            touched, front_in, counts_in, front_out, work_e,
+                            work_j, counts_out, m=m)
         return
     if dev.type != "cuda":
         raise ValueError(f"sublevel_update: unsupported device {dev}")
-    for name, t in (("dec", dec), ("S_ext", S_ext)):
+    _check_state(dev, dec, S_ext, processed, inCurr, m)
+    _check_edges(dev, l, u, v, Es, m)
+    cuda_build.check_int32("touched", touched, dev, (m,))
+    for name, t in (("front_in", front_in), ("front_out", front_out)):
         cuda_build.check_int32(name, t, dev, (m + 1,))
-    for name, t in (("processed", processed), ("inCurr", inCurr)):
-        cuda_build.check_mask(name, t, dev, (m + 1,))
-    cuda_build.check_int32("l", l, dev, (1,))
-    cuda_build.check_int32("u", u, dev)
-    cuda_build.check_int32("v", v, dev, tuple(u.shape))
-    if u.shape[0] < m:
-        raise ValueError(f"u has {u.shape[0]} edges, expected >= {m}")
-    cuda_build.check_int32("Es", Es, dev)
-    cap = work_e.shape[0]
-    cuda_build.check_int32("work_e", work_e, dev, (cap,))
-    cuda_build.check_int32("work_j", work_j, dev, (cap,))
-    cuda_build.check_int32("counts", counts, dev, (4,))
-    lib = cuda_build.library("peel")
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        code = lib.sublevel_update_launch(
-            dec.data_ptr(), S_ext.data_ptr(), processed.data_ptr(),
-            inCurr.data_ptr(), l.data_ptr(), u.data_ptr(), v.data_ptr(),
-            Es.data_ptr(), work_e.data_ptr(), work_j.data_ptr(),
-            counts.data_ptr(), m, WORK_SLICE, stream)
-    cuda_build.check_launch(lib, "peel", code)
+    for name, t in (("counts_in", counts_in), ("counts_out", counts_out)):
+        cuda_build.check_int32(name, t, dev, (4,))
+    _check_work(dev, work_e, work_j)
+    _launch("peel", "sparse_update_launch", dec, S_ext, processed, inCurr, l,
+            u, v, Es, touched, front_in, counts_in, front_out, work_e, work_j,
+            counts_out, m, WORK_SLICE)
     UPDATE_COUNTS.kernel += 1
 
 
-def sublevel_update_ref(dec, S_ext, processed, inCurr, l, u, v, Es, work_e,
-                        work_j, counts, *, m: int) -> None:
+def sublevel_update_ref(dec, S_ext, processed, inCurr, l, u, v, Es, touched,
+                        front_in, counts_in, front_out, work_e, work_j,
+                        counts_out, *, m: int) -> None:
     """Plain PyTorch version of ``sublevel_update`` (same contract); the
-    work list comes out in ascending edge order."""
+    next frontier's id and work lists come out in ascending edge order."""
     UPDATE_COUNTS.plain += 1
-    nxt = apply_decrements(dec, S_ext, processed, inCurr, l.reshape(()), m)
-    inCurr.copy_(nxt)
-    dec.zero_()
-    front = torch.nonzero(nxt)[:, 0].to(torch.int32)
-    frontier_work(front, u, v, Es, work_e, work_j, counts)
-    counts[2] = processed.sum()
-    counts[3] = 0
+    _, n_front, n_done, n_touched = counts_in.tolist()
+    old = front_in[:n_front].long()
+    processed[old] = True
+    inCurr[old] = False
+    t = touched[:n_touched].long()
+    s = torch.maximum(S_ext[t] - dec[t], l.reshape(()))
+    S_ext[t] = s
+    dec[t] = 0
+    nxt = torch.sort(t[s == l.reshape(())]).values
+    inCurr[nxt] = True
+    _next_frontier(nxt.to(torch.int32), u, v, Es, front_out, work_e, work_j,
+                   counts_out)
+    counts_out[2] = n_done + n_front
+    counts_out[3] = 0

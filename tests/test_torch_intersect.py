@@ -105,6 +105,58 @@ def test_unsorted_and_duplicate_rows(dtype):
                   want)
 
 
+def _run_rows(rng, E, D, pad, kind, dtype):
+    """(E, D) rows of one layout: "duplicates" (sorted with repeated ids,
+    then ``pad``), "full" (one sorted run, no padding), "padding" (all
+    ``pad``) or "runs<k>" (``k`` sorted runs, no padding; fewer when D <
+    2k)."""
+    out = np.full((E, D), pad, dtype)
+    if kind == "padding":
+        return out
+    for i in range(E):
+        if kind == "duplicates":
+            vals = np.sort(rng.integers(0, 2 * D,
+                                        size=int(rng.integers(0, D + 1))))
+        elif kind == "full":
+            vals = np.sort(rng.integers(0, 2 * D, size=D))
+        else:
+            k = min(int(kind[4:]), D // 2)
+            lens = [D // k] * (k - 1) + [D - (D // k) * (k - 1)]
+            # each run climbs from 0 to 2D, so each boundary descends
+            vals = np.concatenate([np.sort(np.concatenate(
+                [[0, 2 * D], rng.integers(0, 2 * D, size=n - 2)]))
+                for n in lens])
+        out[i, :vals.size] = vals
+    return out
+
+
+def _n_runs(row) -> int:
+    """Maximal non-decreasing runs of one row (0 for an empty row)."""
+    return int(row.size > 0) + int((np.diff(row.astype(np.int64)) < 0).sum())
+
+
+@pytest.mark.parametrize("dtype", [np.int32, np.int16])
+@pytest.mark.parametrize("kind", ["duplicates", "full", "padding", "runs2",
+                                  "runs3", "runs4", "runs5"])
+@pytest.mark.parametrize("E,DA,DB", [(9, 16, 16), (6, 40, 64)])
+def test_sorted_run_layouts(E, DA, DB, kind, dtype):
+    """The row layouts between which the kernel chooses its path — CSR-like
+    rows with duplicates, one run with no padding, all padding, 2 to 5
+    sorted runs — give the Pallas kernel's outputs."""
+    rng = np.random.default_rng(E * DB + len(kind))
+    a = _run_rows(rng, E, DA, -1, "duplicates", dtype)
+    b = _run_rows(rng, E, DB, -2, kind, dtype)
+    if kind.startswith("runs"):
+        assert {_n_runs(row) for row in b} == {int(kind[4:])}
+    elif kind != "padding":
+        assert all(_n_runs(row) <= 2 for row in b)
+    if kind == "padding":
+        a[:, 0] = -2  # an id equal to the padding matches all of it
+    want = ref_intersect(jnp.asarray(a), jnp.asarray(b), block_rows=4,
+                         interpret=True)
+    _assert_equal(_port(a, b, block_rows=4), want)
+
+
 def test_plain_version_walks_slices(monkeypatch):
     """Slicing the plain version's rows changes no result."""
     rng = np.random.default_rng(5)

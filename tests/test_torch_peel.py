@@ -7,7 +7,8 @@ same numpy values to ``repro.kernels.peel.peel_decrement_fold`` in
 interpret mode (over its table, with its own active-chunk mask) and to
 ``repro_torch.kernels.peel.peel_decrement_fold`` on CPU tensors (its plain
 version, over the frontier's work list and the CSR).  The update is held
-against the reference's sub-level formula on the same states.  Comparisons
+against the reference's sub-level formula on the same states: the dense
+update at a level's start, the sparse update after each fold.  Comparisons
 are exact on ``[:m]``.
 """
 
@@ -90,9 +91,10 @@ def _work_list(g, curr, rng=None):
 
 
 def _both(g, tabs, chunk, n_chunks, iters, S_ext, proc, curr, l, pinned,
-          rng=None):
-    """K2 against the reference at one state; ``rng`` shuffles the port's
-    frontier list."""
+          rng=None, return_touched=False):
+    """K2 against the reference at one state → ``dec`` (and the touched
+    list when ``return_touched``); ``rng`` shuffles the port's frontier
+    list."""
     m = g.m
     active = np.asarray(ref_pkt._active_chunk_mask(
         jnp.asarray(curr), tabs, m, n_chunks))
@@ -106,13 +108,16 @@ def _both(g, tabs, chunk, n_chunks, iters, S_ext, proc, curr, l, pinned,
         chunk=chunk, n_chunks=n_chunks, iters=iters, m=m, interpret=True)
     t = torch.tensor
     work_e, work_j, counts = _work_list(g, curr, rng)
-    got = port_kernel.peel_decrement_fold(
+    got, touched = port_kernel.peel_decrement_fold(
         work_e, work_j, counts, t(np.array([l], np.int32)), t(g.El[:, 0]),
         t(g.El[:, 1]), t(g.Es), t(g.N), t(g.Eid), t(S_ext), t(proc),
         t(curr), None if pinned is None else t(pinned), m=m)
     assert got.dtype == torch.int32 and got.shape == (m + 1,)
+    assert touched.dtype == torch.int32 and touched.shape == (m,)
     assert np.array_equal(got.numpy()[:m], np.asarray(want)[:m])
     assert int(got[m]) == 0
+    if return_touched:
+        return got.numpy(), touched[:int(counts[3])].numpy()
     return got.numpy()
 
 
@@ -171,12 +176,46 @@ def test_plain_k2_counts_plain_calls_only():
     assert after["kernel"] == before["kernel"]
 
 
+@pytest.mark.parametrize("work_slice", [None, 3])
+@pytest.mark.parametrize("name", sorted(CASES))
+def test_plain_fold_touched_list_is_nonzero_dec(name, work_slice,
+                                                 monkeypatch):
+    """The plain fold lists the edges it decrements as ``nonzero(dec)`` in
+    ascending order, with their number in ``counts[3]``; pinned edges and
+    slot ``m`` are never listed."""
+    if work_slice is not None:
+        monkeypatch.setattr(port_kernel, "WORK_SLICE", work_slice)
+    E, chunk = CASES[name]
+    g, tabs, chunk, n_chunks, iters, states = _reference_states(E, chunk)
+    m = g.m
+    rng = np.random.default_rng(len(name) + 1)
+    listed = 0
+    for S_ext, proc in states:
+        if proc[:m].all():
+            continue
+        l, curr = _frontier(S_ext, proc, m)
+        pinned = np.append(~proc[:m] & (rng.random(m) < 0.3), False)
+        for pin, order in ((None, None), (pinned, None), (None, rng)):
+            dec, touched = _both(g, tabs, chunk, n_chunks, iters, S_ext, proc,
+                                 curr, l, pin, order, return_touched=True)
+            assert np.array_equal(touched, np.nonzero(dec[:m])[0])
+            assert not (proc[touched] | curr[touched]).any()
+            assert (S_ext[touched] > l).all()
+            if pin is not None:
+                assert not pin[touched].any()
+            listed += touched.size
+    assert listed > 0
+
+
 @pytest.mark.parametrize("name", sorted(CASES))
 def test_plain_sublevel_update_matches_reference_formula(name, monkeypatch):
-    """sublevel_update's plain version applies the reference's sub-level
-    body (src/repro/core/pkt.py, ``sublevel``) on the reference's own
-    states, makes the next frontier's work list and counts, zeroes dec, and
-    with a zero dec and an empty frontier forms a level's first frontier."""
+    """The plain updates apply the reference's sub-level body
+    (src/repro/core/pkt.py, ``sublevel``) on the reference's own states.
+    At a level's start the dense update (zero dec, empty frontier) forms the
+    level's first frontier.  After each fold, the sparse update, fed the
+    fold's touched list and the old frontier's id list only, gives the
+    reference's state and the next frontier's id and work lists and counts,
+    and zeroes dec."""
     monkeypatch.setattr(port_kernel, "WORK_SLICE", 4)
     E, chunk = CASES[name]
     g, tabs, chunk, n_chunks, iters, states = _reference_states(E, chunk)
@@ -184,51 +223,60 @@ def test_plain_sublevel_update_matches_reference_formula(name, monkeypatch):
     t = torch.tensor
     u, v, Es = t(g.El[:, 0]), t(g.El[:, 1]), t(g.Es)
     scan = np.minimum(g.degrees[g.El[:, 0]], g.degrees[g.El[:, 1]])
-    cap = port_kernel.work_capacity(m, int(scan.sum()))
+    buf = port_kernel.buffers(m, port_kernel.work_capacity(m, int(scan.sum())),
+                              "cpu")
 
-    def update(dec, S_ext, proc, curr, l):
-        state = [t(a.copy()) for a in (dec, S_ext, proc, curr)]
-        work_e = torch.full((cap,), -1, dtype=torch.int32)
-        work_j = torch.full((cap,), -1, dtype=torch.int32)
-        counts = torch.full((4,), -1, dtype=torch.int32)
-        port_kernel.sublevel_update(*state, t(np.array([l], np.int32)), u, v,
-                                    Es, work_e, work_j, counts, m=m)
-        n_items, n_front, n_done, zero = counts.tolist()
-        nxt = state[3].numpy()
-        assert (n_front, n_done, zero) == (int(nxt.sum()),
-                                           int(state[2].sum()), 0)
-        assert not state[0].any()  # dec is zeroed for the next fold
-        got = sorted(zip(work_e[:n_items].tolist(), work_j[:n_items].tolist()))
-        want = sorted((int(e), j) for e in np.nonzero(nxt)[0]
+    def check(p, S, P, C, S_want, P_want, C_want):
+        n_items, n_front, n_done, n_touched = buf.counts[p].tolist()
+        assert np.array_equal(S.numpy(), S_want)
+        assert np.array_equal(P.numpy(), P_want)
+        assert np.array_equal(C.numpy(), C_want)
+        assert not buf.dec.any()  # dec is zeroed for the next fold
+        assert (n_front, n_done, n_touched) == (int(C_want.sum()),
+                                                int(P_want.sum()), 0)
+        assert np.array_equal(buf.front[p, :n_front].numpy(),
+                              np.nonzero(C_want)[0])
+        got = sorted(zip(buf.work_e[:n_items].tolist(),
+                         buf.work_j[:n_items].tolist()))
+        want = sorted((int(e), j) for e in np.nonzero(C_want)[0]
                       for j in range(-(-int(scan[e]) // 4)))
         assert got == want
-        return state[1].numpy(), state[2].numpy(), nxt
 
     checked = 0
     for S_ext, proc in states:
         if proc[:m].all():
             continue
         l, curr = _frontier(S_ext, proc, m)
+        lt = t(np.array([l], np.int32))
+        S, P = t(S_ext.copy()), t(proc.copy())
+        C = torch.zeros(m + 1, dtype=torch.bool)
+        buf.dec.zero_()
         # a level's start: zero dec, empty frontier
-        zero = np.zeros(m + 1, np.int32)
-        S1, p1, c1 = update(zero, S_ext, proc, np.zeros(m + 1, bool), l)
-        assert np.array_equal(S1, S_ext) and np.array_equal(p1, proc)
-        assert np.array_equal(c1, curr)
+        port_kernel.dense_update(buf.dec, S, P, C, lt, u, v, Es, buf.front[0],
+                                 buf.work_e, buf.work_j, buf.counts[0], m=m)
+        check(0, S, P, C, S_ext, proc, curr)
+        p = 0
         # the level's sub-levels (up to three), against the reference's
         # formula
         for _ in range(3):
             dec = _both(g, tabs, chunk, n_chunks, iters, S_ext, proc, curr,
                         l, None)
+            port_kernel.peel_decrement_fold(
+                buf.work_e, buf.work_j, buf.counts[p], lt, u, v, Es, t(g.N),
+                t(g.Eid), S, P, C, m=m, dec=buf.dec, touched=buf.touched)
+            assert np.array_equal(buf.dec.numpy(), dec)
             upd = ~proc & ~curr & (dec > 0)
             S2 = np.where(upd, np.maximum(S_ext - dec, l),
                           S_ext).astype(np.int32)
             proc2 = proc | curr
             curr2 = ~proc2 & (S2 == l)
             curr2[m] = False
-            S3, p3, c3 = update(dec, S_ext, proc, curr, l)
-            assert np.array_equal(S3, S2)
-            assert np.array_equal(p3, proc2)
-            assert np.array_equal(c3, curr2)
+            port_kernel.sublevel_update(
+                buf.dec, S, P, C, lt, u, v, Es, buf.touched, buf.front[p],
+                buf.counts[p], buf.front[1 - p], buf.work_e, buf.work_j,
+                buf.counts[1 - p], m=m)
+            p = 1 - p
+            check(p, S, P, C, S2, proc2, curr2)
             checked += 1
             S_ext, proc, curr = S2, proc2, curr2
             if not curr.any():

@@ -127,6 +127,34 @@ def test_peel_live_subset_with_pinned(mode):
                                      device="cpu").shape == (0,)
 
 
+@pytest.mark.parametrize("name", sorted(GRAPHS))
+@pytest.mark.parametrize("compaction", sorted(COMPACTION))
+def test_kernel_executor_sparse_update_matches_reference(name, compaction):
+    """The kernel executor — a dense update per level, then a fold and a
+    sparse update per sub-level — equals the reference exactly in
+    trussness, support, levels, sub-levels and compactions, and so does its
+    masked re-peel with pinned edges."""
+    peel = importlib.import_module("repro_torch.kernels.peel")
+    want = _reference(name, compaction)
+    before = (peel.UPDATE_COUNTS.plain, peel.DENSE_COUNTS.plain)
+    got = port_pkt.pkt(port_build(GRAPHS[name]), chunk=16, device="cpu",
+                       **COMPACTION[compaction])
+    _assert_same(got, want)
+    assert (peel.UPDATE_COUNTS.plain - before[0],
+            peel.DENSE_COUNTS.plain - before[1]) == (got.sublevels,
+                                                     got.levels)
+    g = ref_build(GRAPHS[name])
+    rng = np.random.default_rng(8)
+    live = np.sort(rng.choice(g.m, size=2 * g.m // 3, replace=False))
+    pinned = rng.random(live.shape[0]) < 0.25
+    S0 = want.support
+    assert np.array_equal(
+        port_pkt.peel_live_subset(g.El, live, S0[live], pinned, mode="kernel",
+                                  device="cpu", **COMPACTION[compaction]),
+        ref_pkt.peel_live_subset(g.El, live, S0[live], pinned,
+                                 mode="chunked", **COMPACTION[compaction]))
+
+
 def test_align_to_input_rejects_missing_edges():
     g = port_build(GRAPHS["er"])
     with pytest.raises(ValueError, match="not present"):
