@@ -2,9 +2,10 @@
 """Chip smoke test of the PyTorch + CUDA port (``src/repro_torch``) on one GPU.
 
 Drives the port's main path — the one-shot PKT truss decomposition and the
-engine that serves it — on the card, and holds every hand-written kernel
-against its plain PyTorch version.  Phases, one JSON line each with its
-seconds:
+engine that serves it — and its incremental path — a handle that takes edge
+churn and answers community queries — on the card, and holds every
+hand-written kernel against its plain PyTorch version.  Phases, one JSON
+line each with its seconds:
 
 1. environment: ``nvidia-smi`` name and power limit, torch version, device;
 2. build: ``nvcc`` for every kernel source, all started together;
@@ -39,7 +40,27 @@ seconds:
    path and the host oracles, and ``truss_wc`` / ``truss_ros`` on the
    small-graph oracle suite;
 10. cli: ``repro_torch.launch.truss.main`` with ``--verify`` on
-    ``rmat-small`` for each of its four engines.
+    ``rmat-small`` for each of its four engines;
+11. incremental: the scale-17 graph opened as an engine handle (K1 and K2
+    launches counted from 0 over the open), its trussness against
+    ``truss_pkt`` and its triangle list against the device enumeration and
+    the support; then churn batches of ``benchmarks/inc_bench.py``'s shape
+    (remove k edges, add k absent ones: 4 at 0.1 % of m, 2 at 1 %), each
+    with its launches counted from 0, its region peels by rung, and its
+    trussness held bitwise against a from-scratch ``truss_pkt``; one more
+    0.1 % batch forced onto the device rung if none took it (K2 over
+    ``peel_live_subset`` with the boundary pinned); the host
+    ``triangles_through`` of a 1 % batch timed alone; batched ≡ sequential
+    ≡ from scratch on ``rmat-small`` and ``ba-small``; and a seeded
+    "corrupt" fault at the region site raising ``IntegrityError`` with the
+    committed state unchanged;
+12. hierarchy: the churned handle's community index built in device mode
+    (seconds, stats, flood rounds, peak memory), three levels against
+    scipy's connected components, the invariants at every level on the
+    device, and device ≡ host on ``rmat-small`` before and after a batch
+    that remaps the upper levels;
+13. cli_updates: ``repro_torch.launch.truss.main`` with ``--update-stream
+    4 --churn 0.01 --query-communities 4 --verify`` on ``rmat-small``.
 
 Any mismatch or exception exits non-zero; no phase catches its own failure.
 The line before the last holds the per-kernel summary, and the last line is
@@ -852,6 +873,384 @@ def profile_run(fn, named=None, sequence=None) -> dict:
                              for name, (t, c) in top])
 
 
+# ---- incremental maintenance and the community index (slice 5) --------------
+
+#: churn batches on the main-path graph, as ``benchmarks/inc_bench.py``'s
+#: "churn" shape: (fraction of m swapped each way, batches)
+CHURN_PLAN = ((0.001, 4), (0.01, 2))
+
+#: graphs of the sequential-oracle check (4 batches at 1 % churn each)
+ORACLE_GRAPHS = ("rmat-small", "ba-small")
+
+
+def kernel_counts(mods) -> dict:
+    """Every kernel's launches and plain-version calls so far."""
+    return dict(support=mods["ksupport"].COUNTS.as_dict(),
+                peel=mods["kpeel"].COUNTS.as_dict(),
+                update=mods["kpeel"].UPDATE_COUNTS.as_dict(),
+                dense=mods["kpeel"].DENSE_COUNTS.as_dict(),
+                intersect=mods["kint"].COUNTS.as_dict())
+
+
+def reset_counts(mods) -> None:
+    """Set every kernel's counts to 0."""
+    for c in (mods["ksupport"].COUNTS, mods["kpeel"].COUNTS,
+              mods["kpeel"].UPDATE_COUNTS, mods["kpeel"].DENSE_COUNTS,
+              mods["kint"].COUNTS):
+        c.reset()
+
+
+def sync(dev) -> None:
+    """Wait for the device's queued work (a no-op on the CPU)."""
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+
+
+def pack_rows(tri: torch.Tensor) -> torch.Tensor:
+    """Each (a, b, c) edge-id row, sorted within itself, as one int64 key
+    (21 bits an id), the keys sorted: equal sets of triangles give equal
+    tensors."""
+    rows = torch.sort(tri.to(torch.int64), dim=1).values
+    if rows.numel() and int(rows.max()) >= 1 << 21:
+        raise AssertionError("edge ids beyond 21 bits: cannot pack rows")
+    return torch.sort((rows[:, 0] << 42) | (rows[:, 1] << 21)
+                      | rows[:, 2]).values
+
+
+def churn_step(eng, h, batch, dev, mods, label) -> dict:
+    """One update batch through the engine, held bitwise against a
+    from-scratch ``truss_pkt`` of the handle's edges on the card."""
+    add, rm = batch
+    inc = h._inc
+    peels0 = dict(inc.region_peels)
+    # host-clock seconds of the update's steps, from timers wrapped around
+    # the handle's own methods for this batch only
+    steps: dict = {}
+
+    def timed(name, fn):
+        def run(*args, **kwargs):
+            t = time.perf_counter()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                sync(dev)
+                steps[name] = steps.get(name, 0.0) + time.perf_counter() - t
+        return run
+
+    for name in ("_apply_deletions", "_apply_insertions", "_level_regions",
+                 "_region_peel", "_full_rebuild"):
+        setattr(inc, name, timed(name.strip("_"), getattr(inc, name)))
+    reset_counts(mods)
+    sync(dev)
+    t0 = time.perf_counter()
+    try:
+        st = eng.update(h, add_edges=add, remove_edges=rm)
+    finally:
+        for name in ("_apply_deletions", "_apply_insertions",
+                     "_level_regions", "_region_peel", "_full_rebuild"):
+            delattr(inc, name)
+    sync(dev)
+    t_upd = time.perf_counter() - t0
+    counts = kernel_counts(mods)
+    t0 = time.perf_counter()
+    ref = mods["pkt"].truss_pkt(h.edges, device=dev)
+    t_scratch = time.perf_counter() - t0
+    if not np.array_equal(h.trussness, ref):
+        raise AssertionError(f"{label}: handle trussness differs from a "
+                             f"from-scratch truss_pkt")
+    if any(c["plain"] for c in counts.values()):
+        raise AssertionError(f"{label}: a plain version ran: {counts}")
+    return dict(batch=label, mode=st.mode, insert_mode=st.insert_mode,
+                m=st.m_after, inserted=st.inserted, deleted=st.deleted,
+                affected=st.affected, boundary=st.boundary,
+                rounds=st.rounds, changed=st.changed, seconds=st.seconds,
+                wall_seconds=t_upd,
+                region_peels={k: inc.region_peels[k] - peels0[k]
+                              for k in peels0},
+                step_seconds=steps,
+                launches={k: v["kernel"] for k, v in counts.items()},
+                # a full fallback's rebuild, by phase (the rest of the
+                # update's seconds is the local attempt before it)
+                rebuild_phases=(dict(inc.open_phases) if st.mode == "full"
+                                else None),
+                from_scratch_seconds=t_scratch, bitwise_equal=True)
+
+
+def check_incremental(edges, dev, mods, TrussEngine, cli,
+                      enumerate_triangles) -> tuple:
+    """Phase ``incremental``: open the main-path graph as a handle, check
+    it, then churn it (``CHURN_PLAN``), every batch held against a
+    from-scratch ``truss_pkt``.  Returns ``(engine, handle, summary,
+    batches)``."""
+    pkt_mod = mods["pkt"]
+    eng = TrussEngine(device=dev)
+    reset_counts(mods)
+    sync(dev)
+    t0 = time.perf_counter()
+    h = eng.open(edges)
+    sync(dev)
+    t_open = time.perf_counter() - t0
+    open_counts = kernel_counts(mods)
+    if (open_counts["support"]["kernel"] < 1
+            or open_counts["peel"]["kernel"] < 1
+            or any(c["plain"] for c in open_counts.values())):
+        raise AssertionError(f"open did not run K1 and K2 on the card: "
+                             f"{open_counts}")
+    inc = h._inc
+    t0 = time.perf_counter()
+    ref = pkt_mod.truss_pkt(h.edges, device=dev)
+    t_scratch = time.perf_counter() - t0
+    if not np.array_equal(h.trussness, ref):
+        raise AssertionError("open: trussness differs from truss_pkt")
+    # the maintained list against the port's device enumeration (as sets),
+    # its order (by lowest member id) and the support K1 computed
+    tri = inc.tri          # the handle keeps it on the device
+    enum = torch.from_numpy(enumerate_triangles(inc.g, device=dev)).to(dev)
+    if not torch.equal(pack_rows(tri), pack_rows(enum)):
+        raise AssertionError("open: triangle list differs from the device "
+                             "enumeration")
+    if tri.shape[0] and not (bool((tri[:, 0] < tri[:, 1]).all())
+                             and bool((tri[:, 1] < tri[:, 2]).all())
+                             and bool((tri[1:, 0] >= tri[:-1, 0]).all())):
+        raise AssertionError("open: triangle rows out of order")
+    per_edge = torch.bincount(tri.reshape(-1), minlength=inc.m)
+    if not np.array_equal(per_edge.cpu().numpy(), inc.S.astype(np.int64)):
+        raise AssertionError("open: triangle list disagrees with support")
+    del tri, enum, per_edge
+    summary = dict(m=h.m, n=h.n, open_seconds=t_open,
+                   open_phases=inc.open_phases,
+                   triangles=int(inc.tri.shape[0]),
+                   max_trussness=int(h.trussness.max()),
+                   launches_per_open={k: v["kernel"]
+                                      for k, v in open_counts.items()},
+                   from_scratch_seconds=t_scratch)
+
+    rng = np.random.default_rng(SEED)
+    n_vert = int(edges.max()) + 1
+    batches = []
+    for frac, count in CHURN_PLAN:
+        for i in range(count):
+            t0 = time.perf_counter()
+            batch = cli.churn_batch(h.edges, n_vert, frac, rng)
+            t_gen = time.perf_counter() - t0
+            row = churn_step(eng, h, batch, dev, mods, f"{frac}#{i}")
+            row.update(churn=frac, generate_seconds=t_gen)
+            emit("incremental_batch", **row)
+            batches.append(row)
+    forced = not any(b["region_peels"]["device"] for b in batches)
+    if forced:
+        # no batch re-peeled a region on the device: one more 0.1 % batch
+        # with every region sent to the device rung (host_peel_max = 0)
+        # and no fallback (local_frac = 1), since on this graph a batch's
+        # insertion region passes 25 % of m and the update recomputes
+        limits = (inc.host_peel_max, inc.local_frac)
+        inc.host_peel_max, inc.local_frac = 0, 1.0
+        batch = cli.churn_batch(h.edges, n_vert, CHURN_PLAN[0][0], rng)
+        row = churn_step(eng, h, batch, dev, mods, "forced-device")
+        row.update(churn=CHURN_PLAN[0][0], host_peel_max=0, local_frac=1.0)
+        inc.host_peel_max, inc.local_frac = limits
+        emit("incremental_batch", **row)
+        batches.append(row)
+    pinned_k2 = [b for b in batches if b["mode"] == "local"
+                 and b["region_peels"]["device"] and b["boundary"]
+                 and b["launches"]["peel"]]
+    if not pinned_k2:
+        raise AssertionError("no batch ran K2 over a pinned region on the "
+                             "card")
+    # the host probe of a 1 % batch's new triangles (``triangles_through``
+    # over the inserted edges' ids in the new graph), timed alone: the 1 %
+    # batches above fall back before their insertion phase reaches it
+    from repro_torch.core.truss_inc import triangles_through
+    from repro_torch.graphs.csr import build_csr, edge_keys
+
+    add, _ = cli.churn_batch(h.edges, n_vert, CHURN_PLAN[-1][0], rng)
+    g_new = build_csr(np.concatenate([h.edges, add]), h.n)
+    anchors = np.searchsorted(
+        edge_keys(g_new.El[:, 0], g_new.El[:, 1], h.n),
+        np.sort(edge_keys(add.min(axis=1), add.max(axis=1), h.n)))
+    t0 = time.perf_counter()
+    found = triangles_through(g_new, anchors)[0].size
+    summary.update(triangles_through=dict(
+        anchors=int(anchors.size), rows=int(found),
+        seconds=time.perf_counter() - t0))
+    summary.update(batches=len(batches), forced_device_batch=forced,
+                   batches_with_pinned_k2=[b["batch"] for b in pinned_k2],
+                   updates_local=eng.stats["updates_local"],
+                   updates_full=eng.stats["updates_full"])
+    return eng, h, summary, batches
+
+
+def check_sequential_oracle(eng, dev, mods, datasets, cli) -> dict:
+    """Batched ≡ sequential ≡ from scratch, bitwise, on the small graphs."""
+    out = {}
+    for name in ORACLE_GRAPHS:
+        E = datasets.named_graph(name)
+        n_vert = int(E.max()) + 1
+        bat = eng.open(E)
+        seq = eng.open(E, insert_mode="sequential")
+        rng = np.random.default_rng(SEED)
+        rows = []
+        for i in range(4):
+            add, rm = cli.churn_batch(bat.edges, n_vert, 0.01, rng)
+            s1 = eng.update(bat, add_edges=add, remove_edges=rm)
+            s2 = eng.update(seq, add_edges=add, remove_edges=rm)
+            ref = mods["pkt"].truss_pkt(bat.edges, device=dev)
+            tri_b, tri_s = bat._inc.tri, seq._inc.tri
+            if not (np.array_equal(bat.edges, seq.edges)
+                    and np.array_equal(bat.trussness, seq.trussness)
+                    and np.array_equal(bat.trussness, ref)
+                    and np.array_equal(bat._inc.S, seq._inc.S)
+                    and torch.equal(pack_rows(tri_b), pack_rows(tri_s))):
+                raise AssertionError(f"{name} batch {i}: batched, "
+                                     f"sequential and from scratch differ")
+            rows.append(dict(batched=s1.mode, sequential=s2.mode,
+                             affected=[s1.affected, s2.affected],
+                             seconds=[s1.seconds, s2.seconds]))
+        eng.close(bat)
+        eng.close(seq)
+        out[name] = rows
+    return out
+
+
+def check_corrupt_fault(eng, dev, mods, datasets, cli, chaos,
+                        IntegrityError) -> dict:
+    """A seeded "corrupt" fault at the region site raises IntegrityError
+    and leaves the handle's committed state as it was."""
+    E = datasets.named_graph(ORACLE_GRAPHS[1])
+    h = eng.open(E, local_frac=1.0)
+    inc = h._inc
+    snap = (inc.edges, inc.trussness, inc.support, inc.triangles)
+    batch = cli.churn_batch(h.edges, int(E.max()) + 1, 0.01,
+                            np.random.default_rng(SEED))
+    plan = chaos.FaultPlan(seed=SEED).add("region", mode="corrupt", times=1)
+    raised = False
+    with plan:
+        try:
+            eng.update(h, add_edges=batch[0], remove_edges=batch[1])
+        except IntegrityError:
+            raised = True
+    if not raised or plan.stats()["injected"].get("region") != 1:
+        raise AssertionError(f"corrupt fault did not raise IntegrityError: "
+                             f"{plan.stats()}")
+    now = (inc.edges, inc.trussness, inc.support, inc.triangles)
+    if not all(np.array_equal(a, b) for a, b in zip(snap, now)):
+        raise AssertionError("corrupt fault changed the committed state")
+    st = eng.update(h, add_edges=batch[0], remove_edges=batch[1])
+    if not np.array_equal(h.trussness,
+                          mods["pkt"].truss_pkt(h.edges, device=dev)):
+        raise AssertionError("the batch after the fault is wrong")
+    eng.close(h)
+    return dict(graph=ORACLE_GRAPHS[1], raised=True,
+                committed_state_unchanged=True, retry_mode=st.mode)
+
+
+def scipy_labels(T: np.ndarray, tri: np.ndarray, k: int) -> np.ndarray:
+    """Level-``k`` labels by scipy: edges are nodes, each triangle whose
+    level is at least k links (a, b) and (a, c); each component maps to
+    its minimum edge id, edges below k to -1."""
+    from scipy.sparse import coo_matrix
+    from scipy.sparse.csgraph import connected_components
+
+    m = T.shape[0]
+    act = tri[T[tri].min(axis=1) >= k]
+    src = np.concatenate([act[:, 0], act[:, 0]])
+    dst = np.concatenate([act[:, 1], act[:, 2]])
+    adj = coo_matrix((np.ones(src.shape[0], np.int8), (src, dst)),
+                     shape=(m, m)).tocsr()
+    n_comp, comp = connected_components(adj, directed=False)
+    low = np.full(n_comp, m, np.int64)
+    np.minimum.at(low, comp, np.arange(m, dtype=np.int64))
+    labels = low[comp]
+    labels[T < k] = -1
+    return labels
+
+
+def check_hierarchy(h, dev, eng, datasets, cli) -> dict:
+    """Phase ``hierarchy``: the main-path handle's index in device mode,
+    three levels against scipy, the invariants at every level on the
+    device; then device ≡ host on ``rmat-small`` before and after a batch
+    that remaps the upper levels."""
+    inc = h._inc
+    sync(dev)
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    hier = h.hierarchy().build_all()
+    sync(dev)
+    t_build = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() if dev.type == "cuda" else None
+    levels = list(hier.levels)
+    checked = sorted({3, levels[len(levels) // 2], hier.k_max}
+                     & set(levels))
+    t0 = time.perf_counter()
+    tri_host = inc.triangles
+    for k in checked:
+        if not np.array_equal(hier.level_labels(k),
+                              scipy_labels(inc.T, tri_host, k)):
+            raise AssertionError(f"hierarchy level {k} differs from scipy")
+    t_scipy = time.perf_counter() - t0
+    # invariants at every level, on the device
+    t0 = time.perf_counter()
+    T = torch.from_numpy(inc.T).to(dev)
+    tri = inc.tri
+    lvl = T[tri].amin(dim=1)
+    order = torch.sort(-lvl, stable=True).indices
+    tri, lvl = tri[order], lvl[order]
+    ids = torch.arange(inc.m, device=dev)
+    for k in levels:
+        L = torch.from_numpy(hier.level_labels(k)).to(dev)
+        live = T >= k
+        act = tri[: int((lvl >= k).sum())]
+        Ll = L[live]
+        ok = (bool((L[~live] == -1).all()) and bool((Ll >= 0).all())
+              and bool((L[Ll] == Ll).all())
+              and bool((Ll <= ids[live]).all()))
+        if act.shape[0]:
+            La = L[act]
+            ok = ok and bool((La.amin(dim=1) == La.amax(dim=1)).all())
+        if not ok:
+            raise AssertionError(f"hierarchy level {k}: invariants fail")
+    t_inv = time.perf_counter() - t0
+    del T, tri, lvl, order, ids
+    summary = dict(levels=len(levels), k_max=hier.k_max,
+                   build_seconds=t_build, stats=hier.stats,
+                   flood_rounds=hier.flood_rounds,
+                   max_memory_allocated=peak, scipy_levels=checked,
+                   scipy_seconds=t_scipy, invariant_seconds=t_inv)
+
+    # rmat-small: device ≡ host, before and after a remapping batch
+    E = datasets.named_graph("rmat-small")
+    hs = eng.open(E, local_frac=1.0)
+    small = {}
+    for when in ("before", "after"):
+        if when == "after":
+            # a 1 % batch that removes only edges of trussness <= 3, so the
+            # repair leaves the upper levels to the remap
+            rng = np.random.default_rng(SEED)
+            low = np.nonzero(hs.trussness <= 3)[0]
+            k = int(round(0.01 * hs.m))
+            rm = hs.edges[rng.choice(low, size=k, replace=False)]
+            add, _ = cli.churn_batch(hs.edges, int(E.max()) + 1, 0.01, rng)
+            st = eng.update(hs, add_edges=add, remove_edges=rm)
+            if st.mode != "local":
+                raise AssertionError("rmat-small remap batch went full")
+        dev_h = hs.hierarchy().build_all()
+        host_h = hs.hierarchy(mode="host").build_all()
+        for k in dev_h.levels:
+            if not np.array_equal(dev_h.level_labels(k),
+                                  host_h.level_labels(k)):
+                raise AssertionError(f"rmat-small {when}: device and host "
+                                     f"labels differ at level {k}")
+        small[when] = dict(stats=dict(dev_h.stats),
+                           flood_rounds=dev_h.flood_rounds,
+                           levels=len(dev_h.levels))
+    if not small["after"]["stats"]["remapped_levels"]:
+        raise AssertionError("rmat-small batch remapped no level")
+    eng.close(hs)
+    summary["rmat_small_device_equals_host"] = small
+    return summary
+
+
 def main() -> int:
     """Run every phase; return the process exit code."""
     if not torch.cuda.is_available():
@@ -878,10 +1277,12 @@ def main() -> int:
     from repro_torch.kernels import support as ksupport
     from repro_torch.kernels import wedge_common as wc
     from repro_torch.launch import truss as cli
+    from repro_torch.core.truss_inc import IntegrityError
     from repro_torch.serve.truss_engine import TrussEngine
+    from repro_torch.testing import chaos
 
     mods = dict(pkt=pkt_mod, support=sup, kpeel=kpeel, ksupport=ksupport,
-                wc=wc, trilist=importlib.import_module(
+                kint=kint, wc=wc, trilist=importlib.import_module(
                     "repro_torch.core.triangle_list"))
     dev = torch.device(DEVICE)
     t_all = time.perf_counter()
@@ -949,18 +1350,10 @@ def main() -> int:
 
     pkt_mod._active_chunk_mask = counted_mask
     t0 = time.perf_counter()
-    ksupport.COUNTS.reset()
-    kpeel.COUNTS.reset()
-    kpeel.UPDATE_COUNTS.reset()
-    kpeel.DENSE_COUNTS.reset()
-    kint.COUNTS.reset()
+    reset_counts(mods)
     res = pkt_mod.pkt(g, phase_timings=True, device=dev)
     truss = pkt_mod.align_to_input(res.trussness, g, None, n, keys=row_keys)
-    counts = dict(support=ksupport.COUNTS.as_dict(),
-                  peel=kpeel.COUNTS.as_dict(),
-                  update=kpeel.UPDATE_COUNTS.as_dict(),
-                  dense=kpeel.DENSE_COUNTS.as_dict(),
-                  intersect=kint.COUNTS.as_dict())
+    counts = kernel_counts(mods)
     t_kernel = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated()
     pkt_mod._active_chunk_mask = chunk_mask
@@ -1133,13 +1526,9 @@ def main() -> int:
     # ---- 8. support kernel path ---------------------------------------------
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    ksupport.COUNTS.reset()
-    kpeel.COUNTS.reset()
-    kint.COUNTS.reset()
+    reset_counts(mods)
     S_k3 = kops.compute_support_kernel(g, device=dev)
-    k3_counts = dict(support=ksupport.COUNTS.as_dict(),
-                     peel=kpeel.COUNTS.as_dict(),
-                     intersect=kint.COUNTS.as_dict())
+    k3_counts = kernel_counts(mods)
     t_k3 = time.perf_counter() - t0
     if not np.array_equal(S_k3, res.support):
         raise AssertionError("compute_support_kernel differs from K1's "
@@ -1169,15 +1558,11 @@ def main() -> int:
     if tri.shape != (int(res.support.sum()) // 3, 3):
         raise AssertionError(f"enumerate_triangles: shape {tri.shape}")
     del tri
-    ksupport.COUNTS.reset()
-    kpeel.COUNTS.reset()
-    kint.COUNTS.reset()
+    reset_counts(mods)
     t0 = time.perf_counter()
     t_tri = truss_trilist(g, device=dev)
     t_trilist = time.perf_counter() - t0
-    tri_counts = dict(support=ksupport.COUNTS.as_dict(),
-                      peel=kpeel.COUNTS.as_dict(),
-                      intersect=kint.COUNTS.as_dict())
+    tri_counts = kernel_counts(mods)
     if not np.array_equal(t_tri, res.trussness):
         raise AssertionError("truss_trilist differs from the main path")
     if tri_counts["support"] != {"kernel": 1, "plain": 0}:
@@ -1235,6 +1620,39 @@ def main() -> int:
         cli_s[engine] = time.perf_counter() - t1
     emit("cli", graph="rmat-small", engines=list(cli.ENGINES),
          seconds_by_engine=cli_s, seconds=time.perf_counter() - t0)
+    del res
+    torch.cuda.empty_cache()
+
+    # ---- 11. incremental -------------------------------------------------------
+    t0 = time.perf_counter()
+    inc_eng, handle, inc_summary, inc_batches = check_incremental(
+        edges, dev, mods, TrussEngine, cli, enumerate_triangles)
+    t1 = time.perf_counter()
+    oracle = check_sequential_oracle(inc_eng, dev, mods, datasets, cli)
+    t_oracle = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    fault = check_corrupt_fault(inc_eng, dev, mods, datasets, cli, chaos,
+                                IntegrityError)
+    t_fault = time.perf_counter() - t1
+    emit("incremental", **inc_summary, sequential_oracle=oracle,
+         sequential_oracle_seconds=t_oracle, corrupt_fault=fault,
+         corrupt_fault_seconds=t_fault, seconds=time.perf_counter() - t0)
+    torch.cuda.empty_cache()
+
+    # ---- 12. hierarchy ---------------------------------------------------------
+    t0 = time.perf_counter()
+    hier_summary = check_hierarchy(handle, dev, inc_eng, datasets, cli)
+    emit("hierarchy", **hier_summary, seconds=time.perf_counter() - t0)
+    inc_eng.close(handle)
+    torch.cuda.empty_cache()
+
+    # ---- 13. cli_updates -------------------------------------------------------
+    t0 = time.perf_counter()
+    cli_args = ["--graph", "rmat-small", "--update-stream", "4", "--churn",
+                "0.01", "--query-communities", "4", "--verify"]
+    # prints its own lines; exits non-zero on a mismatch
+    cli.main(cli_args)
+    emit("cli_updates", args=cli_args, seconds=time.perf_counter() - t0)
 
     # ---- summary -------------------------------------------------------------
     # the summary line reports the widest K2 launch checked (and the update
@@ -1246,6 +1664,9 @@ def main() -> int:
              source="src/repro_torch/kernels/csrc/support.cu",
              replaces="src/repro/kernels/support.py:86",
              launches=main_counts["support"]["kernel"],
+             launches_per_open=inc_summary["launches_per_open"]["support"],
+             launches_per_update_batch=[b["launches"]["support"]
+                                        for b in inc_batches],
              max_abs_err=k1["max_abs_err"], ms=k1["ms"],
              plain_ms=k1["plain_ms"], bound_ms=k1["bound_ms"],
              bound_by=k1["bound_by"], library_ms=None),
@@ -1253,6 +1674,9 @@ def main() -> int:
              source="src/repro_torch/kernels/csrc/peel.cu",
              replaces="src/repro/kernels/peel.py:107",
              launches=main_counts["peel"]["kernel"],
+             launches_per_open=inc_summary["launches_per_open"]["peel"],
+             launches_per_update_batch=[b["launches"]["peel"]
+                                        for b in inc_batches],
              max_abs_err=max(c["max_abs_err"] for c in k2_cases),
              state=k2_first["state"], ms=k2_first["ms"],
              plain_ms=k2_first["plain_ms"],

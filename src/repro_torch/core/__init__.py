@@ -1,5 +1,5 @@
-"""Core: PKT truss decomposition, its support phase, the paper's baselines
-and the host oracles."""
+"""Core: PKT truss decomposition, its support phase, the paper's baselines,
+the host oracles, incremental maintenance and the truss community index."""
 
 from repro_torch.core.pkt import pkt, truss_pkt, PKTResult, peel_live_subset
 from repro_torch.core.support import (
@@ -18,6 +18,19 @@ from repro_torch.core.ros import truss_ros
 from repro_torch.core.ref import truss_numpy
 from repro_torch.core.triangle_list import truss_trilist, enumerate_triangles
 from repro_torch.core.kcore import kcore_numpy, kcore_park
+from repro_torch.core.truss_inc import (
+    IncrementalTruss,
+    IntegrityError,
+    UpdateStats,
+    INSERT_MODES,
+    compose_update_batches,
+    triangle_list,
+)
+from repro_torch.core.hierarchy import (
+    TrussHierarchy,
+    HIER_MODES,
+    hierarchy_from_graph,
+)
 
 __all__ = [
     "pkt", "truss_pkt", "PKTResult", "peel_live_subset",
@@ -27,4 +40,7 @@ __all__ = [
     "truss_wc", "truss_ros", "truss_numpy",
     "truss_trilist", "enumerate_triangles",
     "kcore_numpy", "kcore_park",
+    "IncrementalTruss", "IntegrityError", "UpdateStats", "INSERT_MODES",
+    "compose_update_batches", "triangle_list",
+    "TrussHierarchy", "HIER_MODES", "hierarchy_from_graph",
 ]

@@ -58,6 +58,7 @@ from repro_torch.device import resolve_device, synchronize
 from repro_torch.graphs.csr import CSRGraph, edge_keys
 from repro_torch.kernels import peel as peel_kernel
 from repro_torch.kernels import wedge_common
+from repro_torch.testing.chaos import fault_point
 
 _SENTINEL_S = 1 << 30
 
@@ -640,6 +641,7 @@ def pkt(g: CSRGraph, *, chunk: int | None = None, mode: str = "kernel",
                          phases=timings)
 
     # ---- support phase -----------------------------------------------------
+    fault_point("support", rung=f"{support_mode}/{table_mode}")
     # the kernel executor reads the CSR: no support table, host or device
     if support_mode == "kernel" or (table_mode == "device"
                                     and support_table is None):

@@ -34,8 +34,15 @@ Usage:
     trussness_a = eng.result(t1)      # already computed
 
 Submissions larger than ``max_edges`` canonical edges are rejected at
-``submit`` time.  Persistent handles (``open``/``update``/``close``) are not
-ported yet.
+``submit`` time.
+
+Persistent handles absorb edge churn by incremental repair (DESIGN.md §9,
+``core/truss_inc.py``):
+
+    h = eng.open(edges)                           # K1 + K2 on the card
+    st = eng.update(h, add_edges=a, remove_edges=r)   # local or full repair
+    h.communities(4)                              # the k-truss community index
+    eng.close(h)
 """
 
 from __future__ import annotations
@@ -47,14 +54,18 @@ from typing import NamedTuple
 import numpy as np
 
 from repro_torch.core import support as support_mod
+from repro_torch.core.hierarchy import HIER_MODES, TrussHierarchy
 from repro_torch.core.pkt import PEEL_MODES, align_to_input, pkt
 from repro_torch.core.ref import truss_numpy
+from repro_torch.core.truss_inc import (INSERT_MODES, IncrementalTruss,
+                                        UpdateStats)
 from repro_torch.device import resolve_device
 from repro_torch.graphs.csr import (CSRGraph, build_csr,
                                     canonical_edges_with_rows,
                                     degeneracy_order, edge_keys, relabel)
 from repro_torch.kernels import count_launches, wedge_common
 from repro_torch.kernels.wedge_common import next_pow2 as _next_pow2
+from repro_torch.testing.chaos import fault_point
 
 _MIN_M_PAD = 8
 
@@ -128,20 +139,129 @@ class _Pending:
     key: SizeClass
     sup_size: int             # exact support-table rows
     peel_size: int            # exact peel-table rows
+    E: np.ndarray             # canonical pre-relabel edges (handle promotion)
+
+
+class TrussHandle:
+    """Persistent decomposition state — the mutable sibling of a ticket.
+
+    Returned by ``TrussEngine.open`` (or by promoting a still-pending
+    ticket through ``TrussEngine.update``).  Unlike the single-read ticket
+    API, a handle retains its graph, trussness, support and triangle list
+    across ``update`` calls until ``TrussEngine.close`` releases it.
+    """
+
+    __slots__ = ("hid", "_inc", "closed")
+
+    def __init__(self, hid: int, inc: IncrementalTruss):
+        self.hid = hid
+        self._inc = inc
+        self.closed = False
+
+    @property
+    def edges(self) -> np.ndarray:
+        """Current canonical (m, 2) edge list (key-sorted)."""
+        return self._inc.edges
+
+    @property
+    def trussness(self) -> np.ndarray:
+        """Per-edge trussness aligned to ``edges`` rows."""
+        return self._inc.trussness
+
+    @property
+    def m(self) -> int:
+        """Current number of (unique, canonical) edges."""
+        return self._inc.m
+
+    @property
+    def n(self) -> int:
+        """Vertex-space size (max id + 1 at open; grows with updates)."""
+        return self._inc.n
+
+    @property
+    def insert_mode(self) -> str:
+        """Insertion repair strategy this handle's updates take (§13)."""
+        return self._inc.insert_mode
+
+    def query(self, edges) -> np.ndarray:
+        """Trussness for specific edges, aligned to the given rows."""
+        return self._inc.query(edges)
+
+    # --------------------------------------------- community queries (§11) --
+    def hierarchy(self, *, mode: str | None = None) -> TrussHierarchy:
+        """The handle's :class:`~repro_torch.core.hierarchy.TrussHierarchy`.
+
+        Lazily built from the handle's maintained trussness + triangle list
+        and cached; local ``TrussEngine.update`` batches carry it forward
+        (untouched levels are id-remapped, repaired levels rebuild lazily),
+        full rebuilds drop it.  ``mode`` in ``HIER_MODES`` overrides the
+        engine's default ("device" label flood vs the "host" union-find
+        oracle — bitwise-identical labels); a non-default mode returns a
+        standalone index without touching the cache.
+        """
+        return self._inc.hierarchy(mode=mode)
+
+    def communities(self, k: int, *,
+                    hier_mode: str | None = None) -> list[np.ndarray]:
+        """Every k-truss community as a (c, 2) array of edge endpoints.
+
+        Communities are the *triangle-connected* components of the edges
+        with trussness >= k (Wang & Cheng), ordered by their representative
+        (minimum) edge id; an edge in no surviving triangle forms a
+        singleton.  k above the graph's max trussness yields ``[]``.
+        ``hier_mode`` overrides the index builder for this call: a
+        non-default mode builds a standalone index, bypassing — and never
+        evicting — the cached one, with bitwise-identical labels.
+        """
+        # the resilience ladder's hierarchy rung (device -> host) calls in
+        # here through ``hier_mode`` once serve/resilience.py is ported
+        E = self._inc.edges
+        ids_per = self._inc.hierarchy(mode=hier_mode).communities(k)
+        return [E[ids] for ids in ids_per]
+
+    def community(self, edge_or_vertex, k: int):
+        """The k-truss community around one edge — or all around one vertex.
+
+        An ``(u, v)`` pair returns that edge's community as a (c, 2)
+        endpoint array (empty when the edge's trussness is below ``k``; an
+        edge not in the graph raises the descriptive alignment ValueError).
+        A scalar vertex id returns a *list* of communities, one per distinct
+        level-``k`` community among the vertex's incident edges.
+        """
+        h = self._inc.hierarchy()
+        E = self._inc.edges
+        q = np.asarray(edge_or_vertex)
+        if q.ndim == 0:                       # vertex query
+            v = int(q)
+            inc_ids = np.nonzero((E[:, 0] == v) | (E[:, 1] == v))[0]
+            labels = h.level_labels(k)[inc_ids]
+            reps = np.unique(labels[labels >= 0])
+            return [E[h.community_of(int(r), k)] for r in reps]
+        eid = int(self._inc.edge_ids(q.reshape(1, 2))[0])
+        return E[h.community_of(eid, k)]
+
+    def __repr__(self):
+        state = "closed" if self.closed else f"m={self._inc.m}"
+        return f"TrussHandle({self.hid}, {state})"
 
 
 class TrussEngine:
     """Queue API over the batched decomposition pipeline.
 
-    Single-read tickets (``submit``/``flush``/``result``/``map``): graphs
-    of one size class are decomposed together, as one disjoint union, per
-    flush.
+    Two traffic shapes share one engine: *single-read tickets*
+    (``submit``/``flush``/``result``/``map``) decompose the graphs of one
+    size class together, as one disjoint union, per flush; *persistent
+    handles* (``open``/``update``/``update_many``/``close``) absorb edge
+    churn by incremental repair (DESIGN.md §9).
 
     Args:
         mode: peel executor for every decomposition (see ``core.pkt.pkt``).
         support_mode: support executor (same axes as ``pkt``).
         table_mode: where the wedge tables are built — "device" on the
             device (§10); "numpy" is the host parity oracle.
+        hier_mode: community-index builder for handles (§11).
+        insert_mode: handle insertion repair strategy ("batched" /
+            "sequential", §13); bitwise-identical results.
         chunk: peel chunk size (rounded up to pow2). ``None`` (default)
             derives it from the table size (``wedge_common.auto_chunk``).
         reorder: degeneracy-reorder each submission before decomposition.
@@ -156,7 +276,8 @@ class TrussEngine:
     """
 
     def __init__(self, *, mode: str = "kernel", support_mode: str = "kernel",
-                 table_mode: str = "device", chunk: int | None = None,
+                 table_mode: str = "device", hier_mode: str = "device",
+                 insert_mode: str = "batched", chunk: int | None = None,
                  reorder: bool = True, max_pending: int = 32,
                  max_edges: int = 1 << 22, device="cuda"):
         if mode not in PEEL_MODES:
@@ -168,6 +289,12 @@ class TrussEngine:
         if table_mode not in support_mod.TABLE_MODES:
             raise ValueError(f"table_mode must be one of "
                              f"{support_mod.TABLE_MODES}, got {table_mode!r}")
+        if hier_mode not in HIER_MODES:
+            raise ValueError(f"hier_mode must be one of {HIER_MODES}, "
+                             f"got {hier_mode!r}")
+        if insert_mode not in INSERT_MODES:
+            raise ValueError(f"insert_mode must be one of {INSERT_MODES}, "
+                             f"got {insert_mode!r}")
         if chunk is not None and chunk < 1:
             raise ValueError("chunk must be positive")
         if max_edges < 1:
@@ -176,6 +303,8 @@ class TrussEngine:
         self.mode = mode
         self.support_mode = support_mode
         self.table_mode = table_mode
+        self.hier_mode = hier_mode
+        self.insert_mode = insert_mode
         self.max_edges = max_edges
         self.chunk = None if chunk is None else _next_pow2(chunk)
         self.reorder = reorder
@@ -183,6 +312,8 @@ class TrussEngine:
         self._pending: list[_Pending] = []
         self._results: dict[int, np.ndarray] = {}
         self._next_ticket = 0
+        self._handles: dict[int, TrussHandle] = {}
+        self._next_handle = 0
         self.stats = {
             "submitted": 0, "flushes": 0, "batches": 0,
             "buckets": set(), "graph_seconds": 0.0, "graphs_done": 0,
@@ -192,6 +323,9 @@ class TrussEngine:
             # per size class: K1/K2 launches and plain-version calls of its
             # dispatches (which executor really ran)
             "bucket_launches": {},
+            # handle lifecycle (incremental maintenance)
+            "handles_opened": 0, "updates": 0, "updates_local": 0,
+            "updates_full": 0, "update_seconds": 0.0,
         }
 
     # ------------------------------------------------------------- submit --
@@ -239,7 +373,7 @@ class TrussEngine:
             support_mod._check_table_size(max(key.sup_pad, key.peel_pad))
         self._pending.append(_Pending(
             ticket=ticket, g=g, n=n, in_keys=in_keys, key=key,
-            sup_size=sup_size, peel_size=peel_size))
+            sup_size=sup_size, peel_size=peel_size, E=E))
         if len(self._pending) >= self.max_pending:
             self.flush()
         return ticket
@@ -268,6 +402,114 @@ class TrussEngine:
         tickets = self.submit_many(graphs)
         self.flush()
         return [self.result(t) for t in tickets]
+
+    # ----------------------------------------------- incremental handles --
+    def open(self, edges, *, local_frac: float = 0.25,
+             insert_mode: str | None = None) -> TrussHandle:
+        """Decompose ``edges`` into a *persistent* handle for ``update``.
+
+        Unlike ``submit``'s single-read tickets, a handle retains the CSR
+        graph, support, trussness and triangle list across arbitrarily many
+        ``update`` batches until ``close`` releases it.  ``insert_mode``
+        overrides the engine's insertion repair strategy for this handle
+        (``None``: engine default, §13).
+        """
+        inc = IncrementalTruss(
+            edges, mode=self.mode, support_mode=self.support_mode,
+            table_mode=self.table_mode, hier_mode=self.hier_mode,
+            insert_mode=(self.insert_mode if insert_mode is None
+                         else insert_mode),
+            chunk=self.chunk, local_frac=local_frac, device=self.device)
+        h = TrussHandle(self._next_handle, inc)
+        self._next_handle += 1
+        self._handles[h.hid] = h
+        self.stats["handles_opened"] += 1
+        return h
+
+    def update(self, ticket_or_handle, *, add_edges=None,
+               remove_edges=None,
+               insert_mode: str | None = None) -> UpdateStats:
+        """Apply one insert/delete batch to a handle (or promote a ticket).
+
+        Accepts a :class:`TrussHandle`, or an *int ticket* whose submission
+        is still pending — the ticket is then consumed (it can no longer be
+        redeemed through ``result``) and promoted to a fresh handle, which
+        the returned stats carry in ``.handle``.  Tickets already flushed or
+        collected cannot be promoted; re-``open`` the edges instead.
+
+        Small batches are absorbed by local repair (affected-region re-peel,
+        see ``core/truss_inc.py``); large ones fall back to a full
+        recompute.  ``stats.mode`` reports which path ran.  ``insert_mode``
+        overrides the handle's insertion strategy for this call (§13).
+        """
+        h = self._resolve_handle(ticket_or_handle)
+        st = h._inc.update(add_edges=add_edges, remove_edges=remove_edges,
+                           insert_mode=insert_mode)
+        return self._count_update(st, h)
+
+    def update_many(self, ticket_or_handle, batches, *,
+                    insert_mode: str | None = None) -> UpdateStats:
+        """Apply several queued update batches to one handle as one repair.
+
+        ``batches`` is a sequence of ``(add_edges, remove_edges)`` pairs in
+        arrival order; their set-wise composition
+        (``core.truss_inc.compose_update_batches``) is applied as a
+        *single* :meth:`IncrementalTruss.update` (DESIGN.md §12).
+
+        Args:
+            ticket_or_handle: a :class:`TrussHandle` (or promotable ticket,
+                as in :meth:`update`).
+            batches: iterable of ``(add_edges, remove_edges)`` pairs;
+                either element may be ``None``.
+            insert_mode: per-call override of the handle's insertion
+                strategy (``None``: handle default, §13).
+
+        Returns:
+            One :class:`UpdateStats` for the composed repair, with
+            ``coalesced`` set to the number of merged batches and
+            ``handle`` set to the target handle.  The final state is
+            bitwise-identical to applying the batches one at a time.
+
+        Raises:
+            ValueError: closed handle, or invalid edge arrays.
+            KeyError: a ticket that is not promotable.
+        """
+        h = self._resolve_handle(ticket_or_handle)
+        st = h._inc.update_many(batches, insert_mode=insert_mode)
+        return self._count_update(st, h)
+
+    def _count_update(self, st: UpdateStats, h: TrussHandle) -> UpdateStats:
+        self.stats["updates"] += 1
+        if st.mode == "full":
+            self.stats["updates_full"] += 1
+        elif st.mode == "local":
+            self.stats["updates_local"] += 1
+        self.stats["update_seconds"] += st.seconds
+        return dataclasses.replace(st, handle=h)
+
+    def close(self, handle: TrussHandle) -> None:
+        """Release a handle's retained state; further use raises."""
+        if handle.closed:
+            return
+        handle.closed = True
+        self._handles.pop(handle.hid, None)
+        handle._inc = None
+
+    def _resolve_handle(self, ticket_or_handle) -> TrussHandle:
+        if isinstance(ticket_or_handle, TrussHandle):
+            if ticket_or_handle.closed:
+                raise ValueError(
+                    f"handle {ticket_or_handle.hid} is closed")
+            return ticket_or_handle
+        ticket = int(ticket_or_handle)
+        for i, p in enumerate(self._pending):
+            if p.ticket == ticket:
+                del self._pending[i]
+                return self.open(p.E)
+        raise KeyError(
+            f"ticket {ticket!r} cannot be promoted to a handle: it is not "
+            f"pending (already decomposed, collected, or unknown) — "
+            f"open() the edges to get an updatable handle")
 
     # ------------------------------------------------------------ internals --
     def _size_class(self, g: CSRGraph, sup_size: int,
@@ -375,6 +617,7 @@ class TrussEngine:
         for key, group in by_key.items():
             warm = key in self.stats["buckets"]
             t0 = time.perf_counter()
+            fault_point("flush", rung=eff_mode)
             with count_launches() as counted:
                 truss_rows = self._dispatch(group, mode=eff_mode,
                                             support_mode=eff_support)
@@ -419,6 +662,7 @@ class TrussEngine:
         if not group:
             return
         t0 = time.perf_counter()
+        fault_point("flush", rung="host")
         out = [align_to_input(truss_numpy(p.g.El), p.g, None, p.n,
                               keys=p.in_keys) for p in group]
         # commit only after every graph decomposed (exception safety)

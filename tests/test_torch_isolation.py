@@ -80,6 +80,38 @@ def test_entry_points_refuse_to_run_on_cpu_by_default(monkeypatch):
         repro_torch.resolve_device("meta")
 
 
+def test_handle_entry_points_refuse_to_run_on_cpu_by_default(monkeypatch):
+    """Without a card the handle path raises unless it asked for the CPU:
+    ``IncrementalTruss`` (both constructors), ``TrussEngine().open``, the
+    community index and the device triangle list."""
+    import repro_torch
+    from repro_torch.core.hierarchy import (TrussHierarchy,
+                                            hierarchy_from_graph)
+    from repro_torch.core.truss_inc import IncrementalTruss, triangle_list
+    from repro_torch.graphs.csr import build_csr
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    edges = np.array([[0, 1], [0, 2], [1, 2]], np.int64)
+    tri = np.array([[0, 1, 2]], np.int64)
+    T, S = np.full(3, 3, np.int64), np.ones(3, np.int32)
+    calls = [lambda: IncrementalTruss(edges),
+             lambda: IncrementalTruss.from_state(edges, T, S, tri),
+             lambda: repro_torch.TrussEngine().open(edges),
+             lambda: TrussHierarchy(T, tri),
+             lambda: TrussHierarchy(T, tri, mode="host"),
+             lambda: hierarchy_from_graph(build_csr(edges), T),
+             lambda: triangle_list(build_csr(edges))]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            call()
+    # asking for the CPU is the explicit opt-in
+    h = repro_torch.TrussEngine(device="cpu").open(edges)
+    assert (h.trussness == 3).all()
+    assert h.communities(3)[0].shape == (3, 2)
+    assert IncrementalTruss.from_state(edges, T, S, tri,
+                                       device="cpu").verify()
+
+
 def test_kernel_modules_do_not_build_at_import():
     """Importing the kernel modules compiles nothing and loads no library."""
     from repro_torch.kernels import cuda_build

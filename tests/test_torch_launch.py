@@ -60,7 +60,51 @@ def test_cli_refuses_without_a_card(monkeypatch):
 
 def test_cli_has_only_the_ported_paths():
     """Paths that are not ported yet are absent, not stubbed."""
-    for flag in (["--engine", "dist"], ["--update-stream", "2"],
-                 ["--serve", "4"], ["--tune-env"]):
+    for flag in (["--engine", "dist"], ["--serve", "4"], ["--tune-env"],
+                 ["--fault-rate", "0.1"]):
         with pytest.raises(SystemExit):
             port_main(["--graph", "fig1", "--device", "cpu", *flag])
+
+
+def _stream_summary(out: str):
+    """The update-stream and community lines of one CLI run, without the
+    times: per batch its counts and repair, the stream's local/full split,
+    the index's levels and stats and the level-k community sizes."""
+    keep = []
+    for ln in out.splitlines():
+        if ln.startswith("batch "):
+            keep.append(ln.rsplit(" ", 1)[0])
+        elif ln.startswith("stream done:"):
+            keep.append(ln.split(", mean")[0])
+        elif ln.startswith("community index:"):
+            keep.append(re.sub(r" build \S+ ", " ", ln.split(
+                ") flood_rounds")[0].rstrip(")")))
+        elif re.match(r"k=\d+:", ln):
+            keep.append(ln.split(", query")[0])
+    return keep
+
+
+@pytest.mark.parametrize("flags", [
+    ["--update-stream", "3", "--churn", "0.05"],
+    ["--update-stream", "2", "--churn", "0.02", "--insert-mode",
+     "sequential", "--local-frac", "1.0"],
+    ["--query-communities", "3"],
+    ["--update-stream", "2", "--churn", "0.02", "--local-frac", "1.0",
+     "--query-communities", "4", "--hier-mode", "host"],
+])
+def test_cli_updates_and_communities_match_reference(flags, capsys):
+    """``--update-stream`` and ``--query-communities`` on ``cliques-tiny``:
+    the port's own ``--verify`` passes (from-scratch ``truss_pkt``, the
+    other index builder) and every summary line equals the reference's."""
+    port_main(["--graph", "cliques-tiny", "--device", "cpu", "--verify",
+               *flags])
+    got = capsys.readouterr().out
+    if "--update-stream" in flags:
+        assert "verify vs from-scratch pkt: OK" in got
+    if "--query-communities" in flags:
+        assert re.search(r"verify (device|host) labels vs \w+ builder: OK",
+                         got)
+    ref_main(["--graph", "cliques-tiny", *flags])
+    want = capsys.readouterr().out
+    assert _stream_summary(got) and _stream_summary(got) == \
+        _stream_summary(want)
