@@ -60,7 +60,25 @@ line each with its seconds:
     device, and device ≡ host on ``rmat-small`` before and after a batch
     that remaps the upper levels;
 13. cli_updates: ``repro_torch.launch.truss.main`` with ``--update-stream
-    4 --churn 0.01 --query-communities 4 --verify`` on ``rmat-small``.
+    4 --churn 0.01 --query-communities 4 --verify`` on ``rmat-small``;
+14. serve: the scale-17 graph opened through ``TrussScheduler.open_async``
+    (a watchdog on, the kernels built before), the CLI's seeded ``--serve``
+    schedule replayed against it (90/9/1 query/update/open, 100 requests at
+    100 per second), then the engine phase's 64 graphs through
+    ``submit_async``; K1 and K2 launches counted from 0 over the phase;
+    latencies by kind, the stage breakdown and each repair's mode; every
+    result bitwise against a synchronous replay on a second handle and the
+    synchronous engine;
+15. chaos: forced kernel-rung flush failures demote the flush ladder to
+    ``chunked+torch`` and recovery re-promotes it to ``kernel+kernel`` (K2
+    launches per request: none on the demoted rung, some after), outputs
+    bitwise; one injected fault per dispatch site retried to parity; the
+    CLI's ``--serve 200 --fault-rate 0.1 --deadline-ms 250 --verify`` on
+    ``rmat-small``;
+16. dist: ``pkt_dist`` on the scale-17 graph in a one-rank ``nccl`` group
+    (its K1 launch counted from 0, its peak memory), bitwise against
+    ``pkt`` with the torch executors; K1 over two edge ranges summed
+    against K1 over ``[0, m)``.
 
 Any mismatch or exception exits non-zero; no phase catches its own failure.
 The line before the last holds the per-kernel summary, and the last line is
@@ -1251,6 +1269,319 @@ def check_hierarchy(h, dev, eng, datasets, cli) -> dict:
     return summary
 
 
+# ---- the async scheduler, its ladders and distributed PKT (slice 6) ---------
+
+#: requests of the serve phase's replay (the CLI's ``--serve`` schedule) and
+#: their offered rate
+SERVE_REQUESTS = 100
+SERVE_QPS = 100.0
+
+
+def engine_fleet(gen) -> list:
+    """The engine phase's seeded mix of ``ENGINE_GRAPHS`` small graphs."""
+    rng = np.random.default_rng(SEED)
+    kinds = ("rmat", "ba", "er", "cliques")
+    return [gen.random_graph_edges(str(k), "small", seed=int(s))
+            for k, s in zip(rng.choice(kinds, ENGINE_GRAPHS),
+                            rng.integers(0, 1 << 16, ENGINE_GRAPHS))]
+
+
+def check_serve(edges, fleet, dev, mods, cli, TrussEngine,
+                TrussScheduler) -> dict:
+    """Phase ``serve``: the main-path graph opened through ``open_async``,
+    the CLI's ``--serve`` schedule replayed against it, then the engine
+    phase's mix through ``submit_async`` — K1 and K2 launches counted from
+    0 over the whole phase; every result held bitwise against a synchronous
+    replay on a second handle and against the synchronous engine."""
+    _, ops = cli.serve_schedule(edges, SERVE_REQUESTS, SEED)
+    n_req = len(ops) + len(fleet) + 1
+    reset_counts(mods)
+    sync(dev)
+    t_phase = time.perf_counter()
+    # the kernels were built before (phase build), so no nvcc runs on the
+    # scheduler thread under the watchdog
+    sched = TrussScheduler(max_batch=16, max_delay_ms=2.0,
+                           max_queue=max(256, 4 * n_req),
+                           max_inflight=max(64, 4 * n_req),
+                           watchdog_s=600.0, device=dev)
+    try:
+        t0 = time.perf_counter()
+        h = sched.open_async(edges).result()
+        t_open = time.perf_counter() - t0
+        outcomes, lat, duration = cli.replay(sched, h, ops, SERVE_QPS)
+        t0 = time.perf_counter()
+        futs = [sched.submit_async(e) for e in fleet]
+        subs = [f.result() for f in futs]
+        t_subs = time.perf_counter() - t0
+        st = sched.stats()
+    finally:
+        sched.close()
+    sync(dev)
+    t_phase = time.perf_counter() - t_phase
+    counts = kernel_counts(mods)
+    failed = [type(v).__name__ for status, v in outcomes if status != "ok"]
+    if failed:
+        raise AssertionError(f"serve: {len(failed)} requests failed: "
+                             f"{failed[:5]}")
+    if (counts["support"]["kernel"] < 1 or counts["peel"]["kernel"] < 1
+            or any(c["plain"] for c in counts.values())):
+        raise AssertionError(f"serve did not run K1 and K2 on the card: "
+                             f"{counts}")
+    # a retried or demoted dispatch may have run on the torch or host rungs,
+    # which count no plain call: only a run that never left the kernels'
+    # rungs reports launches
+    off_rung = {site: lad for site, lad in st["resilience"].items()
+                if lad["failures"] or lad["demotions"]
+                or lad["rung"] != lad["rungs"][0]}
+    if st["counters"]["retries"] or st["counters"]["errors"] or off_rung:
+        raise AssertionError(f"serve left the kernel rungs: counters "
+                             f"{st['counters']}, ladders {off_rung}")
+    t0 = time.perf_counter()
+    if not cli.sync_replay(TrussEngine(device=dev), edges, ops, outcomes, h,
+                           local_frac=0.25):
+        raise AssertionError("serve: async results differ from the sync "
+                             "replay on a second handle")
+    t_replay = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    want = TrussEngine(max_pending=len(fleet) + 1, device=dev).map(fleet)
+    t_sync_engine = time.perf_counter() - t0
+    for i, (got, w) in enumerate(zip(subs, want)):
+        if not np.array_equal(got, w):
+            raise AssertionError(f"serve: submission {i} differs from the "
+                                 f"sync engine")
+    # each repair once (coalesced requests share one UpdateStats)
+    repairs = {id(v): v for (kind, *_), (_, v) in zip(ops, outcomes)
+               if kind == "update"}
+    updates = [dict(mode=v.mode, coalesced=v.coalesced,
+                    inserted=v.inserted, deleted=v.deleted,
+                    affected=v.affected, boundary=v.boundary,
+                    seconds=v.seconds) for v in repairs.values()]
+    mix = {k: sum(op[0] == k for op in ops) for k in ("query", "update",
+                                                      "open")}
+    return dict(graph="main path", m=h.m, requests=len(ops), mix=mix,
+                qps_offered=SERVE_QPS, qps_achieved=len(ops) / duration,
+                replay_seconds=duration, open_seconds=t_open,
+                latency=cli.latency_summary(lat), submissions=len(fleet),
+                submit_seconds=t_subs,
+                dispatches=st["counters"]["dispatches"],
+                coalesced_updates=st["counters"]["coalesced_updates"],
+                counters=st["counters"], stages=st["stages"],
+                resilience={k: v["rung"] for k, v in
+                            st["resilience"].items()},
+                updates=updates,
+                launches={k: v["kernel"] for k, v in counts.items()},
+                sync_replay_seconds=t_replay,
+                sync_engine_seconds=t_sync_engine, phase_seconds=t_phase,
+                bitwise_equal_to_sync_replay=True,
+                bitwise_equal_to_sync_engine=True)
+
+
+def check_chaos(dev, mods, datasets, cli, TrussEngine, TrussScheduler,
+                RetryPolicy, chaos) -> dict:
+    """Phase ``chaos``: the flush ladder's demotion and re-promotion under
+    forced kernel-rung failures, one injected fault per dispatch site
+    retried to parity, and the CLI's faulted ``--serve`` replay."""
+    pkt_mod = mods["pkt"]
+    E = datasets.named_graph("rmat-small")
+    want = pkt_mod.truss_pkt(E, device=dev)
+    fast = RetryPolicy(max_retries=2, base_delay_s=0.001, max_delay_s=0.002)
+    out = {}
+
+    # forced failures on the kernel rung: demote, probe, re-promote; the
+    # requests run one at a time, so each one's launches are its own
+    plan = chaos.FaultPlan(seed=SEED).add("flush", rung="kernel", times=2)
+    per_request = []
+    with plan, TrussScheduler(max_batch=1, max_delay_ms=0.0, retry=fast,
+                              ladder={"demote_after": 2, "probe_after": 1,
+                                      "promote_after": 1},
+                              device=dev) as sched:
+        for _ in range(3):
+            reset_counts(mods)
+            got = sched.submit_async(E).result()
+            sync(dev)
+            c = kernel_counts(mods)
+            per_request.append(dict(
+                rung_after=sched.stats()["resilience"]["flush"]["rung"],
+                k1=c["support"]["kernel"], k2=c["peel"]["kernel"],
+                plain=sum(v["plain"] for v in c.values()),
+                bitwise_equal=bool(np.array_equal(got, want))))
+        flush = sched.stats()["resilience"]["flush"]
+    ladder_ok = (flush["rungs"] == ["kernel+kernel", "chunked+torch", "host"]
+                 and (flush["failures"], flush["demotions"], flush["probes"],
+                      flush["promotions"]) == (2, 1, 1, 1)
+                 and flush["rung"] == "kernel+kernel")
+    k2_ok = (per_request[0]["k2"] == 0 and per_request[1]["k2"] > 0
+             and per_request[2]["k2"] > 0
+             and not any(r["plain"] for r in per_request))
+    if not (ladder_ok and k2_ok
+            and all(r["bitwise_equal"] for r in per_request)
+            and plan.stats()["injected"].get("flush") == 2):
+        raise AssertionError(f"flush ladder: {flush} {per_request} "
+                             f"{plan.stats()}")
+    out["flush_ladder"] = dict(ladder=flush, requests=per_request)
+
+    # one injected fault per site, retried to parity
+    rng = np.random.default_rng(SEED)
+    sync_eng = TrussEngine(device=dev)
+    sites = {}
+    with TrussScheduler(max_batch=4, max_delay_ms=1.0, retry=fast,
+                        device=dev) as sched:
+        h = sched.open_async(E, local_frac=1.0).result()
+        E2 = datasets.named_graph("ba-small")
+        add, rm = cli.churn_batch(h.edges, int(E.max()) + 1, 0.01, rng)
+        for site, call, check in (
+                ("flush", lambda: sched.submit_async(E),
+                 lambda r: np.array_equal(r, want)),
+                ("region", lambda: sched.update_async(
+                    h, add_edges=add, remove_edges=rm),
+                 lambda r: r.mode == "local" and np.array_equal(
+                     h.trussness, pkt_mod.truss_pkt(h.edges, device=dev))),
+                ("support", lambda: sched.open_async(E2),
+                 lambda r: np.array_equal(
+                     r.trussness, pkt_mod.truss_pkt(r.edges, device=dev))),
+                # the top level of the updated handle: built on demand
+                ("hierarchy", lambda: sched.communities_async(
+                    h, int(h.trussness.max())),
+                 lambda r: (lambda w: len(r) == len(w) and all(
+                     np.array_equal(a, b) for a, b in zip(r, w)))(
+                     sync_eng.open(h.edges).communities(
+                         int(h.trussness.max()))))):
+            before = sched.stats()
+            fp = chaos.FaultPlan(seed=SEED).add(site, times=1)
+            with fp:
+                result = call().result()
+            after = sched.stats()
+            row = dict(
+                injected=fp.stats()["injected"].get(site, 0),
+                retries=(after["counters"]["retries"]
+                         - before["counters"]["retries"]),
+                failures=(after["resilience"][site]["failures"]
+                          - before["resilience"][site]["failures"]),
+                bitwise_equal=bool(check(result)))
+            if row != dict(injected=1, retries=1, failures=1,
+                           bitwise_equal=True):
+                raise AssertionError(f"chaos site {site}: {row}")
+            sites[site] = row
+    out["one_fault_per_site"] = sites
+
+    # the CLI's faulted replay; it prints its own lines and exits non-zero
+    # on a mismatch
+    import contextlib
+    import io
+
+    args = ["--graph", "rmat-small", "--serve", "200", "--qps", "200",
+            "--fault-rate", "0.1", "--deadline-ms", "250", "--verify",
+            "--device", dev.type]
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        cli.main(args)
+    text = buf.getvalue()
+    print(text, end="", flush=True)
+    if "verify async vs sync engine (failed ops masked): OK" not in text:
+        raise AssertionError("cli --serve under faults: no verify OK")
+    out["cli"] = dict(args=args, seconds=time.perf_counter() - t0,
+                      lines=[ln for ln in text.splitlines()
+                             if ln.startswith(("chaos:", "  retries",
+                                               "achieved", "verify"))])
+    return out
+
+
+def check_dist(g, dev, mods, pkt_dist_mod) -> dict:
+    """Phase ``dist``: ``pkt_dist`` at scale 17 in a one-rank ``nccl``
+    group, bitwise equal to ``pkt`` with the torch executors, its K1
+    launches counted from 0; then K1 over two edge ranges, summed, against
+    K1 over ``[0, m)``, and each range against K1's plain version over the
+    same range."""
+    import shutil
+    import tempfile
+
+    import torch.distributed as tdist
+
+    pkt_mod, ks, sup, wc = (mods["pkt"], mods["ksupport"], mods["support"],
+                            mods["wc"])
+    rdv = tempfile.mkdtemp(prefix=".rendezvous-", dir=ROOT)
+    out = {}
+    try:
+        torch.cuda.set_device(0 if dev.index is None else dev.index)
+        tdist.init_process_group(
+            "nccl", init_method=pathlib.Path(rdv, "group").as_uri(),
+            rank=0, world_size=1)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts(mods)
+        t0 = time.perf_counter()
+        T = pkt_dist_mod.pkt_dist(g, device=dev)
+        t_dist = time.perf_counter() - t0
+        counts = kernel_counts(mods)
+        peak_dist = torch.cuda.max_memory_allocated()
+    finally:
+        if tdist.is_initialized():
+            tdist.destroy_process_group()
+        shutil.rmtree(rdv, ignore_errors=True)
+    if counts["support"] != {"kernel": 1, "plain": 0} or any(
+            c["plain"] for c in counts.values()):
+        raise AssertionError(f"pkt_dist did not launch K1 once: {counts}")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    ref = pkt_mod.pkt(g, mode="chunked", support_mode="torch", device=dev)
+    t_torch = time.perf_counter() - t0
+    peak_torch = torch.cuda.max_memory_allocated()
+    if not np.array_equal(T, ref.trussness.astype(np.int64)):
+        raise AssertionError("pkt_dist differs from pkt with the torch "
+                             "executors")
+    del ref
+    torch.cuda.empty_cache()
+    out.update(m=g.m, ranks=1, backend="nccl", pkt_dist_seconds=t_dist,
+               max_memory_allocated=peak_dist,
+               torch_executor_seconds=t_torch,
+               torch_executor_max_memory_allocated=peak_torch,
+               peel_table_rows=sup.peel_table_size(g),
+               launches={k: v["kernel"] for k, v in counts.items()},
+               bitwise_equal_to_torch_executors=True)
+
+    # K1's edge ranges: two halves of the rows, summed, against [0, m)
+    size = sup.support_table_size(g)
+    size_pad = wc.next_pow2(size)
+    chunk = wc.pow2_chunk(size_pad, None, size=size)
+    arrays = g.device_arrays(dev)
+    args = tuple(arrays[k] for k in ("u", "v", "Es", "Eo", "N", "Eid"))
+    kw = dict(m=g.m, chunk=chunk, n_chunks=size_pad // chunk)
+    bounds = pkt_dist_mod.edge_ranges(g, 2)
+    S_all, tri_all = ks.support_accumulate(*args, **kw)
+    halves = [ks.support_accumulate(*args, **kw, e_begin=int(a),
+                                    e_end=int(b))
+              for a, b in zip(bounds[:-1], bounds[1:])]
+    err = max(max_abs_err(halves[0][0] + halves[1][0], S_all),
+              max_abs_err(halves[0][1] + halves[1][1], tri_all))
+    if err != 0:
+        raise AssertionError(f"K1's edge ranges do not sum to [0, m): {err}")
+    # each range on its own against the plain version over the same range
+    plain_err = []
+    for (a, b), (S_h, tri_h) in zip(zip(bounds[:-1], bounds[1:]), halves):
+        S_p, tri_p = ks.support_accumulate_ref(*args, **kw, e_begin=int(a),
+                                               e_end=int(b))
+        plain_err.append(max(max_abs_err(S_h, S_p),
+                             max_abs_err(tri_h, tri_p)))
+    if any(plain_err):
+        raise AssertionError(f"K1 over an edge range differs from its plain "
+                             f"version over that range: {plain_err}")
+    ms = [cuda_ms(lambda a=a, b=b: ks.support_accumulate(
+        *args, **kw, e_begin=int(a), e_end=int(b)), 5)
+        for a, b in zip(bounds[:-1], bounds[1:])]
+    v = g.El[:, 1].astype(np.int64)
+    off = np.concatenate([[0], np.cumsum(g.Es.astype(np.int64)[v + 1]
+                                         - g.Eo.astype(np.int64)[v])])
+    out["k1_edge_ranges"] = dict(
+        bounds=[int(b) for b in bounds],
+        rows=[int(r) for r in np.diff(off[bounds])],
+        ms=ms, whole_ms=cuda_ms(lambda: ks.support_accumulate(*args, **kw),
+                                5),
+        max_abs_err=err, max_abs_err_vs_plain_per_range=plain_err)
+    return out
+
+
 def main() -> int:
     """Run every phase; return the process exit code."""
     if not torch.cuda.is_available():
@@ -1278,6 +1609,7 @@ def main() -> int:
     from repro_torch.kernels import wedge_common as wc
     from repro_torch.launch import truss as cli
     from repro_torch.core.truss_inc import IntegrityError
+    from repro_torch.serve import RetryPolicy, TrussScheduler
     from repro_torch.serve.truss_engine import TrussEngine
     from repro_torch.testing import chaos
 
@@ -1469,11 +1801,7 @@ def main() -> int:
 
     # ---- 6. engine -----------------------------------------------------------
     t0 = time.perf_counter()
-    rng = np.random.default_rng(SEED)
-    kinds = ("rmat", "ba", "er", "cliques")
-    fleet = [gen.random_graph_edges(str(k), "small", seed=int(s))
-             for k, s in zip(rng.choice(kinds, ENGINE_GRAPHS),
-                             rng.integers(0, 1 << 16, ENGINE_GRAPHS))]
+    fleet = engine_fleet(gen)
     t_fleet = time.perf_counter() - t0
     eng = TrussEngine(max_pending=len(fleet) + 1, device=dev)
     t0 = time.perf_counter()
@@ -1653,6 +1981,27 @@ def main() -> int:
     # prints its own lines; exits non-zero on a mismatch
     cli.main(cli_args)
     emit("cli_updates", args=cli_args, seconds=time.perf_counter() - t0)
+    torch.cuda.empty_cache()
+
+    # ---- 14. serve ---------------------------------------------------------------
+    t0 = time.perf_counter()
+    serve = check_serve(edges, engine_fleet(gen), dev, mods, cli,
+                        TrussEngine, TrussScheduler)
+    emit("serve", **serve, seconds=time.perf_counter() - t0)
+    torch.cuda.empty_cache()
+
+    # ---- 15. chaos ---------------------------------------------------------------
+    t0 = time.perf_counter()
+    chaos_summary = check_chaos(dev, mods, datasets, cli, TrussEngine,
+                                TrussScheduler, RetryPolicy, chaos)
+    emit("chaos", **chaos_summary, seconds=time.perf_counter() - t0)
+    torch.cuda.empty_cache()
+
+    # ---- 16. dist ----------------------------------------------------------------
+    t0 = time.perf_counter()
+    dist_summary = check_dist(g, dev, mods, importlib.import_module(
+        "repro_torch.core.pkt_dist"))
+    emit("dist", **dist_summary, seconds=time.perf_counter() - t0)
 
     # ---- summary -------------------------------------------------------------
     # the summary line reports the widest K2 launch checked (and the update
@@ -1667,7 +2016,11 @@ def main() -> int:
              launches_per_open=inc_summary["launches_per_open"]["support"],
              launches_per_update_batch=[b["launches"]["support"]
                                         for b in inc_batches],
-             max_abs_err=k1["max_abs_err"], ms=k1["ms"],
+             launches_serve=serve["launches"]["support"],
+             launches_per_pkt_dist=dist_summary["launches"]["support"],
+             max_abs_err=max(k1["max_abs_err"],
+                             dist_summary["k1_edge_ranges"]["max_abs_err"]),
+             ms=k1["ms"],
              plain_ms=k1["plain_ms"], bound_ms=k1["bound_ms"],
              bound_by=k1["bound_by"], library_ms=None),
         dict(name="peel_decrement_fold", route="cuda",
@@ -1677,6 +2030,8 @@ def main() -> int:
              launches_per_open=inc_summary["launches_per_open"]["peel"],
              launches_per_update_batch=[b["launches"]["peel"]
                                         for b in inc_batches],
+             launches_serve=serve["launches"]["peel"],
+             launches_per_pkt_dist=dist_summary["launches"]["peel"],
              max_abs_err=max(c["max_abs_err"] for c in k2_cases),
              state=k2_first["state"], ms=k2_first["ms"],
              plain_ms=k2_first["plain_ms"],

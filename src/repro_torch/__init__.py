@@ -10,8 +10,10 @@ Two user paths: the one-shot decomposition (``truss_pkt``, the engine's
 ``submit``/``flush``), and persistent handles (``TrussEngine.open`` /
 ``update`` / ``close``, ``core/truss_inc.py``) that absorb edge churn by
 local repair and answer k-truss community queries (``core/hierarchy.py``).
+``serve/scheduler.py`` serves both asynchronously (``TrussScheduler``, with
+the retry and degradation ladders of ``serve/resilience.py``);
 ``testing/chaos.py`` holds the seeded fault plans the dispatch sites
-consult.
+consult.  ``core/pkt_dist.py`` runs PKT over ``torch.distributed`` ranks.
 
 Every entry point takes ``device=`` and defaults to ``"cuda"``; without a
 card it raises rather than running on the CPU.  ``device="cpu"`` runs every

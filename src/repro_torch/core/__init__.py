@@ -1,7 +1,9 @@
-"""Core: PKT truss decomposition, its support phase, the paper's baselines,
-the host oracles, incremental maintenance and the truss community index."""
+"""Core: PKT truss decomposition (single-device and distributed over
+``torch.distributed`` ranks), its support phase, the paper's baselines, the
+host oracles, incremental maintenance and the truss community index."""
 
 from repro_torch.core.pkt import pkt, truss_pkt, PKTResult, peel_live_subset
+from repro_torch.core.pkt_dist import pkt_dist
 from repro_torch.core.support import (
     compute_support,
     compute_support_ros,
@@ -33,7 +35,7 @@ from repro_torch.core.hierarchy import (
 )
 
 __all__ = [
-    "pkt", "truss_pkt", "PKTResult", "peel_live_subset",
+    "pkt", "truss_pkt", "PKTResult", "peel_live_subset", "pkt_dist",
     "compute_support", "compute_support_ros", "triangle_count",
     "build_support_table", "build_peel_table",
     "support_table_size", "peel_table_size", "SUPPORT_MODES", "TABLE_MODES",

@@ -577,7 +577,8 @@ def pkt(g: CSRGraph, *, chunk: int | None = None, mode: str = "kernel",
         peel_table: support_mod.WedgeTable | None = None,
         compact_frac: float | None = _COMPACT_FRAC,
         compact_min: int = _COMPACT_MIN,
-        phase_timings: bool = False, device="cuda") -> PKTResult:
+        phase_timings: bool = False, support_site: bool = True,
+        device="cuda") -> PKTResult:
     """Full PKT truss decomposition of one CSR graph.
 
     Every executor pairing produces bitwise-identical results, equal to the
@@ -611,6 +612,11 @@ def pkt(g: CSRGraph, *, chunk: int | None = None, mode: str = "kernel",
         phase_timings: populate ``PKTResult.phases`` with a
             {tables, support, peel, compact} wall-time split (adds sync
             barriers between phases).
+        support_site: consult the "support" fault site of
+            ``testing/chaos.py`` before the support phase.  The engine's
+            batched flush passes ``False``: as in the JAX package, whose
+            flush never reaches ``pkt``, a flush consults only its own
+            "flush" site.
         device: "cuda" (the default; raises when no card is present) or
             "cpu", where every "kernel" executor runs its plain version.
 
@@ -641,7 +647,8 @@ def pkt(g: CSRGraph, *, chunk: int | None = None, mode: str = "kernel",
                          phases=timings)
 
     # ---- support phase -----------------------------------------------------
-    fault_point("support", rung=f"{support_mode}/{table_mode}")
+    if support_site:
+        fault_point("support", rung=f"{support_mode}/{table_mode}")
     # the kernel executor reads the CSR: no support table, host or device
     if support_mode == "kernel" or (table_mode == "device"
                                     and support_table is None):

@@ -164,14 +164,16 @@ def _check_table_size(size: int) -> None:
             f"offsets)")
 
 
-def _expand_segments(off: torch.Tensor, size: int, m: int):
+def _expand_segments(off: torch.Tensor, size: int, m: int, start: int = 0):
     """Row → segment assignment for a cumsum offset array ``off`` (m+1,).
 
-    Returns ``(e1, e1c, intra, valid)``: the owning segment of each of the
-    ``size`` rows (``m`` for rows beyond ``off[m]``), a clamped variant safe
-    as a gather index, the offset within the segment, and the validity mask.
+    Returns ``(e1, e1c, intra, valid)`` for the ``size`` rows from row
+    ``start`` on: the owning segment of each row (``m`` for rows beyond
+    ``off[m]``), a clamped variant safe as a gather index, the offset within
+    the segment, and the validity mask.
     """
-    idx = torch.arange(size, dtype=torch.int32, device=off.device)
+    idx = torch.arange(start, start + size, dtype=torch.int32,
+                       device=off.device)
     e1 = torch.searchsorted(off[1:], idx, right=True, out_int32=True)
     e1c = e1.clamp(max=m - 1)
     valid = idx < off[m]
@@ -189,17 +191,18 @@ def _offsets(cnt: torch.Tensor) -> torch.Tensor:
 
 
 def _build_support_table_dev(u, v, Es, Eo, m_real: int, *, m: int,
-                             size: int):
+                             size: int, start: int = 0):
     """Device mirror of ``build_support_table`` at padded ``size``.
 
     ``u``/``v``: (m,) edge endpoints (rows >= ``m_real`` are inert padding);
     ``Es``: (n_pad+1,) CSR offsets; ``Eo``: (n_pad,).  Returns
-    ``(e1, cand_slot, lo, hi, off)`` with the pad_chunked sentinel contract.
+    ``(e1, cand_slot, lo, hi, off)`` with the pad_chunked sentinel contract;
+    ``start`` builds only rows ``[start, start + size)`` (one rank's slice).
     """
     ar = torch.arange(m, dtype=torch.int32, device=u.device)
     cnt = torch.where(ar < m_real, Es[v + 1] - Eo[v], 0)
     off = _offsets(cnt)
-    e1, e1c, intra, valid = _expand_segments(off, size, m)
+    e1, e1c, intra, valid = _expand_segments(off, size, m, start)
     cand = torch.where(valid, Eo[v[e1c]] + intra, 0)
     del intra
     uc = u[e1c]
@@ -210,13 +213,14 @@ def _build_support_table_dev(u, v, Es, Eo, m_real: int, *, m: int,
 
 
 def _build_peel_table_dev(u, v, Es, m_real: int, *, m: int, size: int,
-                          chunk: int):
+                          chunk: int, start: int = 0):
     """Device mirror of ``build_peel_table`` + per-edge chunk-range metadata.
 
     Same row semantics as ``build_peel_table``; also emits the ``chunk_ranges``
     bookkeeping for ``chunk`` so the peel's chunk skipping needs no host
     pass.  Returns ``(e1, cand_slot, lo, hi, off, c_start, c_end,
-    has_entries)``.
+    has_entries)``; ``start`` builds only rows ``[start, start + size)``
+    (one rank's slice; the chunk metadata stays global).
     """
     deg = Es[1:] - Es[:-1]
     swap = deg[u] > deg[v]
@@ -225,7 +229,7 @@ def _build_peel_table_dev(u, v, Es, m_real: int, *, m: int, size: int,
     ar = torch.arange(m, dtype=torch.int32, device=u.device)
     cnt = torch.where(ar < m_real, deg[cand_v], 0)
     off = _offsets(cnt)
-    e1, e1c, intra, valid = _expand_segments(off, size, m)
+    e1, e1c, intra, valid = _expand_segments(off, size, m, start)
     cand = torch.where(valid, Es[cand_v[e1c]] + intra, 0)
     del intra
     pc = prob_v[e1c]

@@ -33,6 +33,11 @@
 //    one ballot each (smaller chunks group the lanes with __match_any_sync);
 //    one lane per (warp, chunk) adds the count.
 //
+//  * An edge range [e_begin, e_end) restricts the grid to those edges' rows
+//    (the whole graph is [0, m)); distributed PKT gives each rank the range
+//    whose rows are its share of the table.  Only the grid's start and end
+//    move.
+//
 // What bounds it: it must read the adjacency lists the edges scan and probe
 // (N, 4 bytes a slot), Eid of the hit slots, the CSR offsets and the edge
 // endpoints, and write S and the triangle partials; chip_smoke.py counts
@@ -84,18 +89,20 @@ support_kernel(const int* __restrict__ u, const int* __restrict__ v,
                const int* __restrict__ Es, const int* __restrict__ Eo,
                const int* __restrict__ off, const int* __restrict__ N,
                const int* __restrict__ Eid, int* __restrict__ S,
-               int* __restrict__ tri, int m, int chunk) {
+               int* __restrict__ tri, int e_first, int e_last,
+               int chunk) {
   __shared__ int staged[kWarps][kStage];
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   int* list = staged[warp];
-  const long long groups = (static_cast<long long>(m) + kGroup - 1) / kGroup;
+  const long long groups =
+      (static_cast<long long>(e_last - e_first) + kGroup - 1) / kGroup;
   const long long all_warps = static_cast<long long>(gridDim.x) * kWarps;
   for (long long grp = static_cast<long long>(blockIdx.x) * kWarps + warp;
        grp < groups; grp += all_warps) {
     int staged_u = -1;  // the vertex whose N+ sits in `list`
-    const int e_begin = static_cast<int>(grp * kGroup);
-    const int e_end = min(m, e_begin + kGroup);
+    const int e_begin = e_first + static_cast<int>(grp * kGroup);
+    const int e_end = min(e_last, e_begin + kGroup);
     for (int e = e_begin; e < e_end; ++e) {
       const int a = __ldg(u + e);
       const int b = __ldg(v + e);
@@ -146,17 +153,18 @@ support_kernel(const int* __restrict__ u, const int* __restrict__ v,
 
 extern "C" int support_accumulate_launch(
     const int* u, const int* v, const int* Es, const int* Eo, const int* off,
-    const int* N, const int* Eid, int* S, int* tri, int m, int chunk,
-    void* stream) {
-  if (m <= 0) return static_cast<int>(cudaSuccess);
-  const long long groups = (static_cast<long long>(m) + kGroup - 1) / kGroup;
+    const int* N, const int* Eid, int* S, int* tri, int e_begin, int e_end,
+    int chunk, void* stream) {
+  if (e_end <= e_begin) return static_cast<int>(cudaSuccess);
+  const long long groups =
+      (static_cast<long long>(e_end - e_begin) + kGroup - 1) / kGroup;
   const long long need = (groups + kWarps - 1) / kWarps;
   static wedge::GridCache grid;
   const long long cap = wedge::resident_grid(grid, support_kernel, kThreads,
                                              0);
   const int blocks = static_cast<int>(need < cap ? need : cap);
   support_kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      u, v, Es, Eo, off, N, Eid, S, tri, m, chunk);
+      u, v, Es, Eo, off, N, Eid, S, tri, e_begin, e_end, chunk);
   return static_cast<int>(cudaGetLastError());
 }
 

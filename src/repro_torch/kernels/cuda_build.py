@@ -38,8 +38,8 @@ _LL = ctypes.c_longlong
 #: C signatures: (argtypes, restype) of every exported function
 _SIGNATURES = {
     "support": {
-        "support_accumulate_launch": ([_VOID] * 9 + [_INT, _INT, _VOID],
-                                      _INT),
+        "support_accumulate_launch": ([_VOID] * 9 + [_INT, _INT, _INT,
+                                                     _VOID], _INT),
         "support_error_string": ([_INT], ctypes.c_char_p),
     },
     "peel": {
@@ -61,6 +61,16 @@ _lock = threading.Lock()
 _loaded: dict = {}
 
 
+class KernelError(RuntimeError):
+    """A kernel of the port did not build, load or launch.
+
+    Not a transient fault: the serving layer never retries it or demotes
+    past it (``serve.resilience.PERMANENT_ERRORS``), so a request whose
+    tensors are on the card fails instead of giving way to the plain
+    versions or the host.
+    """
+
+
 def nvcc_path() -> str:
     """The CUDA compiler: ``nvcc`` on PATH, else under ``$CUDA_HOME``."""
     found = shutil.which("nvcc")
@@ -71,7 +81,7 @@ def nvcc_path() -> str:
     cand = pathlib.Path(home) / "bin" / "nvcc"
     if cand.exists():
         return str(cand)
-    raise RuntimeError(
+    raise KernelError(
         "nvcc not found (looked on PATH and under $CUDA_HOME/bin): the CUDA "
         "kernels cannot be built")
 
@@ -93,8 +103,8 @@ def build_all(names=SOURCES) -> dict:
     """Compile every named source that has no current library, in parallel.
 
     Returns ``{name: compiler output}`` for the sources it compiled (the
-    ``-Xptxas -v`` register and spill report); raises with the compiler's
-    output when any build fails.
+    ``-Xptxas -v`` register and spill report); raises :class:`KernelError`
+    with the compiler's output when any build fails.
     """
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     todo = [n for n in names if not library_path(n).exists()]
@@ -116,7 +126,7 @@ def build_all(names=SOURCES) -> dict:
         else:
             os.replace(tmp, out)  # atomic: a reader never sees half a file
     if failed:
-        raise RuntimeError("nvcc failed for " + ", ".join(failed) + ":\n" +
+        raise KernelError("nvcc failed for " + ", ".join(failed) + ":\n" +
                            "\n".join(logs[n] for n in failed))
     return logs
 
@@ -127,7 +137,11 @@ def library(name: str) -> ctypes.CDLL:
         lib = _loaded.get(name)
         if lib is None:
             build_all((name,))
-            lib = ctypes.CDLL(str(library_path(name)))
+            try:
+                lib = ctypes.CDLL(str(library_path(name)))
+            except OSError as e:
+                raise KernelError(f"cannot load the {name} kernels: {e}") \
+                    from e
             for fn, (argtypes, restype) in _SIGNATURES[name].items():
                 getattr(lib, fn).argtypes = argtypes
                 getattr(lib, fn).restype = restype
@@ -136,10 +150,10 @@ def library(name: str) -> ctypes.CDLL:
 
 
 def check_launch(lib: ctypes.CDLL, name: str, code: int) -> None:
-    """Raise on a non-zero ``cudaGetLastError`` returned by a launch."""
+    """Raise :class:`KernelError` on a non-zero ``cudaGetLastError``."""
     if code != 0:
         msg = getattr(lib, f"{name}_error_string")(code).decode()
-        raise RuntimeError(f"{name} kernel launch failed: CUDA error {code} "
+        raise KernelError(f"{name} kernel launch failed: CUDA error {code} "
                            f"({msg})")
 
 

@@ -1,14 +1,15 @@
 """Truss decomposition CLI of the port — the pipeline end to end.
 
   PYTHONPATH=src python -m repro_torch.launch.truss --graph rmat-small \
-      [--order kco|natural] [--engine pkt|trilist|wc|ros] [--verify] \
+      [--order kco|natural] [--engine pkt|dist|trilist|wc|ros] [--verify] \
       [--device cuda|cpu]
 
 Loads a named graph, relabels it by degeneracy order (``--order kco``),
 builds the CSR graph and decomposes it with one engine: PKT (``pkt``, with
-its executors), the triangle-list peel (``trilist``), or the paper's
-baselines WC (``wc``, a host loop) and Ros (``ros``, support on the
-device).  It prints the same summary lines as the JAX package's CLI;
+its executors), distributed PKT (``dist``: ``core/pkt_dist.py`` over the
+initialized ``torch.distributed`` group, or one rank), the triangle-list
+peel (``trilist``), or the paper's baselines WC (``wc``, a host loop) and
+Ros (``ros``, support on the device).  It prints the same summary lines as the JAX package's CLI;
 ``--verify`` checks the trussness against the numpy oracle (small graphs).
 The work runs on ``--device`` ("cuda" by default; without a card the
 CLI refuses to run unless given ``--device cpu``, where every "kernel"
@@ -32,17 +33,26 @@ queried on the post-churn graph, having survived the updates):
 
   PYTHONPATH=src python -m repro_torch.launch.truss --graph rmat-small \
       --query-communities 4 [--hier-mode device|host] [--verify]
+
+Async serving (DESIGN.md §12, §15): replay N paced requests in the 90/9/1
+query/update/open mix through ``TrussScheduler``, optionally under seeded
+dispatch faults and per-request deadlines; ``--verify`` replays the same
+schedule synchronously and checks every completed result bitwise:
+
+  PYTHONPATH=src python -m repro_torch.launch.truss --graph rmat-small \
+      --serve 120 --qps 300 [--fault-rate 0.1 --deadline-ms 250] [--verify]
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import time
 
 import numpy as np
 
-from repro_torch.core import (pkt, truss_numpy, truss_pkt, truss_ros,
-                              truss_trilist, truss_wc)
+from repro_torch.core import (pkt, pkt_dist, truss_numpy, truss_pkt,
+                              truss_ros, truss_trilist, truss_wc)
 from repro_torch.core.hierarchy import HIER_MODES
 from repro_torch.core.pkt import PEEL_MODES
 from repro_torch.core.truss_inc import INSERT_MODES
@@ -50,9 +60,11 @@ from repro_torch.core.support import SUPPORT_MODES, TABLE_MODES
 from repro_torch.device import DEFAULT_DEVICE, resolve_device
 from repro_torch.graphs.csr import build_csr, degeneracy_order, relabel
 from repro_torch.graphs.datasets import named_graph
+from repro_torch.graphs.gen import erdos_renyi_edges
+from repro_torch.kernels.wedge_common import pow2_chunk
 from repro_torch.serve.truss_engine import TrussEngine
 
-ENGINES = ("pkt", "trilist", "wc", "ros")
+ENGINES = ("pkt", "dist", "trilist", "wc", "ros")
 
 
 def parse_args(argv=None) -> argparse.Namespace:
@@ -106,6 +118,24 @@ def parse_args(argv=None) -> argparse.Namespace:
                     choices=list(HIER_MODES),
                     help="community-index builder: the device label flood "
                          "(default) or the host union-find parity oracle")
+    ap.add_argument("--serve", type=int, default=0, metavar="N",
+                    help="replay N mixed 90/9/1 query/update/open requests "
+                         "through the async TrussScheduler (DESIGN.md §12)")
+    ap.add_argument("--qps", type=float, default=200.0,
+                    help="offered request rate for --serve")
+    ap.add_argument("--max-batch", type=int, default=16,
+                    help="scheduler bucket size before dispatch (--serve)")
+    ap.add_argument("--max-delay-ms", type=float, default=2.0,
+                    help="scheduler latency bound: a non-full bucket "
+                         "dispatches once its oldest request waits this "
+                         "long (--serve)")
+    ap.add_argument("--fault-rate", type=float, default=0.0,
+                    help="inject seeded dispatch faults at this rate during "
+                         "--serve (DESIGN.md §15); completed requests stay "
+                         "parity-checked under --verify")
+    ap.add_argument("--deadline-ms", type=float, default=None,
+                    help="per-request deadline for --serve; expired "
+                         "requests fail with a typed DeadlineExceeded")
     return ap.parse_args(argv)
 
 
@@ -227,11 +257,210 @@ def run_query_communities(args, device) -> None:
     report_communities(h, args.query_communities, verify=args.verify)
 
 
+def serve_schedule(E: np.ndarray, n_ops: int, seed: int):
+    """The seeded ``--serve`` replay: ``(pool, ops)``.
+
+    ``pool`` is 32 absent edges the updates toggle (disjoint from the base
+    rows the queries sample, so both replays stay valid); ``ops`` holds
+    ``n_ops`` requests in the 90/9/1 mix — ``("query", rows)``,
+    ``("update", add, remove)`` and ``("open", edges)`` of a small fresh
+    graph.  The draws are the JAX package's, in its order.
+    """
+    n = int(E.max()) + 1
+    rng = np.random.default_rng(seed)
+    present = {(int(u), int(v)) for u, v in E}
+    pool = []
+    while len(pool) < 32:
+        u, v = int(rng.integers(0, n)), int(rng.integers(0, n))
+        if u != v and (min(u, v), max(u, v)) not in present:
+            pool.append((min(u, v), max(u, v)))
+            present.add(pool[-1])
+    # generation tracks pool presence so removals always hit present edges
+    ops, in_pool, n_open = [], set(), 0
+    for _ in range(n_ops):
+        r = rng.random()
+        if r < 0.90:
+            ops.append(("query", E[rng.integers(0, E.shape[0], size=8)]))
+        elif r < 0.99:
+            picks = [pool[j] for j in rng.choice(len(pool), size=4,
+                                                 replace=False)]
+            add = [e for e in picks if e not in in_pool]
+            rem = [e for e in picks if e in in_pool]
+            in_pool |= set(add)
+            in_pool -= set(rem)
+            ops.append(("update", np.array(add or np.zeros((0, 2)), np.int64),
+                        np.array(rem or np.zeros((0, 2)), np.int64)))
+        else:
+            ops.append(("open", erdos_renyi_edges(
+                64, 8.0, seed=seed + 5000 + n_open)))
+            n_open += 1
+    return pool, ops
+
+
+def replay(sched, h, ops, qps: float) -> tuple:
+    """Submit ``ops`` against handle ``h`` paced at ``qps``; returns
+    ``(outcomes, latencies, seconds)``: per op ``("ok", value)`` or
+    ``("failed", exception)``, and ``(kind, seconds)`` per completion."""
+    lat, futs = [], []
+    t_start = time.perf_counter()
+    for i, op in enumerate(ops):
+        target = t_start + i / qps
+        if target > time.perf_counter():
+            time.sleep(target - time.perf_counter())
+        t_enq = time.perf_counter()
+        if op[0] == "query":
+            f = sched.query_async(h, op[1])
+        elif op[0] == "update":
+            f = sched.update_async(h, add_edges=op[1], remove_edges=op[2])
+        else:
+            f = sched.open_async(op[1])
+        f.add_done_callback(lambda f, k=op[0], t=t_enq:
+                            lat.append((k, time.perf_counter() - t)))
+        futs.append(f)
+    outcomes = []
+    for f in futs:
+        try:
+            outcomes.append(("ok", f.result()))
+        except Exception as e:  # noqa: BLE001 — typed, classified by callers
+            outcomes.append(("failed", e))
+    return outcomes, lat, time.perf_counter() - t_start
+
+
+def latency_summary(lat) -> dict:
+    """Per request kind in ``lat`` (``(kind, seconds)`` pairs): ``n`` and
+    the ``p50_ms``/``p99_ms``/``max_ms`` of its latencies, in milliseconds
+    (the p-th percentile is the sorted sample at index ``p·n``, the last
+    one at most)."""
+    out = {}
+    for kind in sorted({k for k, _ in lat}):
+        ms = sorted(1e3 * s for k, s in lat if k == kind)
+        out[kind] = dict(n=len(ms), p50_ms=ms[len(ms) // 2],
+                         p99_ms=ms[min(len(ms) - 1, int(0.99 * len(ms)))],
+                         max_ms=ms[-1])
+    return out
+
+
+def sync_replay(eng: TrussEngine, E: np.ndarray, ops, outcomes, h, *,
+                local_frac: float) -> bool:
+    """Replay ``ops`` synchronously on a fresh handle of ``eng``; True when
+    every completed result and the final trussness are bitwise equal.
+    Failed ops are masked: their updates never committed."""
+    hs = eng.open(E, local_frac=local_frac)
+    ok = True
+    for op, (status, got) in zip(ops, outcomes):
+        if status != "ok":
+            continue
+        if op[0] == "query":
+            ok = ok and np.array_equal(got, hs.query(op[1]))
+        elif op[0] == "update":
+            eng.update(hs, add_edges=op[1], remove_edges=op[2])
+        else:
+            ok = ok and np.array_equal(got.trussness,
+                                       eng.open(op[1]).trussness)
+    return ok and np.array_equal(h.trussness, hs.trussness)
+
+
+def run_serve(args, device) -> None:
+    """Replay paced mixed traffic through the async scheduler (``--serve``).
+
+    Opens the named graph as a persistent handle, then replays ``--serve``
+    requests at ``--qps`` in the 90/9/1 query/update/open serving mix
+    (DESIGN.md §12): trussness queries on base rows, churn updates toggling
+    a reserved extra-edge pool (so queried rows always exist), and opens of
+    small fresh graphs.  Prints per-kind latency and the scheduler's stage
+    breakdown; ``--verify`` replays the same schedule through a synchronous
+    engine and checks every result bitwise.
+
+    With ``--fault-rate`` a seeded ``FaultPlan`` injects dispatch faults
+    during the replay (DESIGN.md §15): completed requests stay bitwise
+    parity-checked, failed ones are masked from the sync replay (their
+    updates never committed — commit is batch-scoped).
+    """
+    from repro_torch.serve import DeadlineExceeded, TrussScheduler
+    from repro_torch.testing.chaos import FaultPlan, InjectedFault
+
+    E = named_graph(args.graph)
+    n = int(E.max()) + 1
+    _, ops = serve_schedule(E, args.serve, args.update_seed)
+    # a replay measures latency, not shedding: admit the whole schedule
+    sched = TrussScheduler(
+        max_batch=args.max_batch, max_delay_ms=args.max_delay_ms,
+        max_queue=max(256, 4 * args.serve),
+        max_inflight=max(64, 4 * args.serve),
+        deadline_ms=args.deadline_ms,
+        mode=args.mode, support_mode=args.support_mode,
+        table_mode=args.table_mode, hier_mode=args.hier_mode,
+        insert_mode=args.insert_mode,
+        chunk=args.chunk, device=device)
+    t0 = time.perf_counter()
+    h = sched.open_async(E, local_frac=args.local_frac).result()
+    print(f"graph={args.graph} n={n} m={h.m} open "
+          f"{time.perf_counter() - t0:.3f}s qps={args.qps} "
+          f"mix=90/9/1 query/update/open fault_rate={args.fault_rate} "
+          f"device={device}")
+
+    plan = None
+    if args.fault_rate > 0.0:
+        plan = FaultPlan.uniform(args.fault_rate, seed=args.update_seed)
+    with plan if plan is not None else contextlib.nullcontext():
+        outcomes, lat, duration = replay(sched, h, ops, args.qps)
+    st = sched.stats()
+    sched.close()
+
+    summary = latency_summary(lat)
+    for kind in ("query", "update", "open"):
+        if kind in summary:
+            q = summary[kind]
+            print(f"{kind:6s} n={q['n']:4d} p50={q['p50_ms']:.2f}ms "
+                  f"p99={q['p99_ms']:.2f}ms max={q['max_ms']:.2f}ms")
+    print(f"achieved {len(ops) / duration:.0f} qps "
+          f"(offered {args.qps:.0f}); dispatches="
+          f"{st['counters']['dispatches']} "
+          f"coalesced_updates={st['counters']['coalesced_updates']} "
+          f"shed={st['counters']['shed']}")
+    for stage, s in st["stages"].items():
+        if s["count"]:
+            print(f"  stage {stage:10s} n={s['count']:4d} "
+                  f"total={s['seconds'] * 1e3:.1f}ms "
+                  f"max={s['max_seconds'] * 1e3:.1f}ms")
+
+    n_ok = sum(1 for s, _ in outcomes if s == "ok")
+    if plan is not None or args.deadline_ms:
+        fails = [e for s, e in outcomes if s == "failed"]
+        n_inj = sum(isinstance(e, InjectedFault) for e in fails)
+        n_dead = sum(isinstance(e, DeadlineExceeded) for e in fails)
+        inj = dict(plan.stats()["injected"]) if plan is not None else {}
+        print(f"chaos: availability {n_ok}/{len(ops)} "
+              f"({n_ok / max(1, len(ops)):.3f}) injected={inj} "
+              f"failed: injected={n_inj} deadline={n_dead} "
+              f"other={len(fails) - n_inj - n_dead}")
+        print(f"  retries={st['counters']['retries']} "
+              f"heals={st['counters']['heals']} "
+              f"deadline_exceeded={st['counters']['deadline_exceeded']} "
+              f"rungs=" +
+              ", ".join(f"{site}:{r['rung']}"
+                        for site, r in st["resilience"].items()))
+
+    if args.verify:
+        eng = TrussEngine(mode=args.mode, support_mode=args.support_mode,
+                          table_mode=args.table_mode,
+                          hier_mode=args.hier_mode, chunk=args.chunk,
+                          device=device)
+        ok = sync_replay(eng, E, ops, outcomes, h,
+                         local_frac=args.local_frac)
+        print("verify async vs sync engine (failed ops masked):",
+              "OK" if ok else "MISMATCH")
+        if not ok:
+            raise SystemExit(1)
+
+
 def main(argv=None) -> None:
-    """Run one decomposition (or an update stream, or community queries)
-    and print its summary; exit 1 on a mismatch."""
+    """Run one decomposition (or an update stream, community queries or a
+    serving replay) and print its summary; exit 1 on a mismatch."""
     args = parse_args(argv)
     device = resolve_device(args.device)
+    if args.serve:
+        return run_serve(args, device)
     if args.update_stream:
         return run_update_stream(args, device)
     if args.query_communities:
@@ -256,6 +485,11 @@ def main(argv=None) -> None:
         truss = res.trussness
         extra = (f"levels={res.levels} sublevels={res.sublevels} "
                  f"compactions={res.compactions}")
+    elif args.engine == "dist":
+        truss = pkt_dist(g, chunk=pow2_chunk(1 << 12,
+                                             args.chunk or (1 << 12)),
+                         support_mode=args.support_mode,
+                         table_mode=args.table_mode, device=device)
     elif args.engine == "trilist":
         truss = truss_trilist(g, device=device)
     elif args.engine == "wc":

@@ -213,8 +213,9 @@ class TrussHandle:
         non-default mode builds a standalone index, bypassing — and never
         evicting — the cached one, with bitwise-identical labels.
         """
-        # the resilience ladder's hierarchy rung (device -> host) calls in
-        # here through ``hier_mode`` once serve/resilience.py is ported
+        # the scheduler's hierarchy ladder (serve/scheduler.py:
+        # _resilient_communities) passes ``hier_mode="host"`` on its
+        # demoted rung
         E = self._inc.edges
         ids_per = self._inc.hierarchy(mode=hier_mode).communities(k)
         return [E[ids] for ids in ids_per]
@@ -569,7 +570,7 @@ class TrussEngine:
             op = disjoint_union([p.g for p in run])
             res = pkt(op.g, chunk=self.chunk, mode=mode,
                       support_mode=support_mode, table_mode=self.table_mode,
-                      device=self.device)
+                      support_site=False, device=self.device)
             for i in range(len(run)):
                 out.append(res.trussness[op.edge_off[i]:op.edge_off[i + 1]])
         return out

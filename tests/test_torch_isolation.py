@@ -112,6 +112,60 @@ def test_handle_entry_points_refuse_to_run_on_cpu_by_default(monkeypatch):
                                        device="cpu").verify()
 
 
+def test_serving_and_dist_entry_points_refuse_to_run_on_cpu_by_default(
+        monkeypatch):
+    """Without a card ``TrussScheduler()`` and ``pkt_dist`` raise unless
+    asked for the CPU; with ``device="cpu"`` they serve."""
+    from repro_torch.core import pkt_dist
+    from repro_torch.graphs.csr import build_csr
+    from repro_torch.serve import TrussScheduler
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    edges = np.array([[0, 1], [0, 2], [1, 2], [2, 3]], np.int64)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        TrussScheduler()
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        TrussScheduler(start=False, max_batch=2)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        pkt_dist(build_csr(edges))
+    # asking for the CPU is the explicit opt-in
+    assert pkt_dist(build_csr(edges), device="cpu").tolist() == [3, 3, 3, 2]
+    with TrussScheduler(device="cpu") as sched:
+        assert sched.submit_async(edges).result(timeout=60).tolist() == \
+            [3, 3, 3, 2]
+
+
+def test_serving_paths_route_every_broad_except(tmp_path):
+    """trusslint's R001 over the port's serving files: every broad
+    ``except`` re-raises or routes the error into ``_finish`` /
+    ``set_exception`` — failures on the serving path are typed, never
+    swallowed.  The repo's lint configuration names the JAX package's
+    serving files; this widens it to the port's for the check."""
+    import dataclasses
+
+    from repro.analysis.config import load_config
+    from repro.analysis.engine import run_paths
+
+    cfg = dataclasses.replace(load_config(ROOT), fault_paths=(
+        "src/repro_torch/serve/*", "src/repro_torch/core/truss_inc.py"))
+    paths = [str(p.relative_to(ROOT)) for p in
+             sorted((PORT / "serve").glob("*.py"))
+             + [PORT / "core" / "truss_inc.py"]]
+    findings = run_paths(paths, cfg, ROOT)
+    r001 = [f for f in findings if f.rule == "R001"]
+    assert r001 == [], "\n".join(f.render() for f in r001)
+    # the check is live: a copy of the scheduler with one more broad
+    # handler that swallows its error is flagged
+    bad = tmp_path / "src" / "repro_torch" / "serve" / "scheduler.py"
+    bad.parent.mkdir(parents=True)
+    bad.write_text((PORT / "serve" / "scheduler.py").read_text()
+                   + "\n\ndef _swallow(fn):\n    try:\n        fn()\n"
+                     "    except Exception:\n        pass\n")
+    assert [f.rule for f in run_paths(
+        ["src/repro_torch/serve/scheduler.py"], cfg, tmp_path)
+            if f.rule == "R001"] == ["R001"]
+
+
 def test_kernel_modules_do_not_build_at_import():
     """Importing the kernel modules compiles nothing and loads no library."""
     from repro_torch.kernels import cuda_build

@@ -25,7 +25,7 @@ def _summary(out: str):
 
 
 @pytest.mark.parametrize("graph", ["fig1", "cliques-tiny"])
-@pytest.mark.parametrize("engine", ["pkt", "trilist", "wc", "ros"])
+@pytest.mark.parametrize("engine", ["pkt", "dist", "trilist", "wc", "ros"])
 def test_cli_summary_matches_reference(graph, engine, capsys):
     port_main(["--graph", graph, "--engine", engine, "--device", "cpu",
                "--verify"])
@@ -59,11 +59,45 @@ def test_cli_refuses_without_a_card(monkeypatch):
 
 
 def test_cli_has_only_the_ported_paths():
-    """Paths that are not ported yet are absent, not stubbed."""
-    for flag in (["--engine", "dist"], ["--serve", "4"], ["--tune-env"],
-                 ["--fault-rate", "0.1"]):
+    """The host tuning flag of the JAX package's CLI is out of the port's
+    scope: absent, not stubbed."""
+    for flag in (["--tune-env"],):
         with pytest.raises(SystemExit):
             port_main(["--graph", "fig1", "--device", "cpu", *flag])
+
+
+def _kind_counts(out: str):
+    """``{kind: completed requests}`` from a ``--serve`` run's latency
+    lines."""
+    return dict(re.findall(r"^(query|update|open)\s+n=\s*(\d+)", out,
+                           re.MULTILINE))
+
+
+def test_cli_serve_matches_reference(capsys):
+    """``--serve`` on ``cliques-tiny``: the port's synchronous replay
+    agrees bitwise, and the seeded 90/9/1 schedule has the reference's
+    request mix."""
+    args = ["--graph", "cliques-tiny", "--serve", "60", "--qps", "300"]
+    port_main([*args, "--verify", "--device", "cpu"])
+    got = capsys.readouterr().out
+    assert "verify async vs sync engine (failed ops masked): OK" in got
+    assert "device=cpu" in got and "dispatches=" in got
+    ref_main(args)
+    want = capsys.readouterr().out
+    assert _kind_counts(got) == _kind_counts(want) == \
+        {"query": "47", "update": "11", "open": "2"}
+
+
+def test_cli_serve_under_faults_and_deadlines(capsys):
+    """``--fault-rate`` and ``--deadline-ms``: failed requests are typed
+    and masked, every completed one still agrees with the sync replay."""
+    port_main(["--graph", "rmat-tiny", "--serve", "60", "--qps", "300",
+               "--fault-rate", "0.1", "--deadline-ms", "250", "--verify",
+               "--device", "cpu"])
+    out = capsys.readouterr().out
+    assert re.search(r"chaos: availability \d+/60", out)
+    assert "rungs=flush:" in out
+    assert "verify async vs sync engine (failed ops masked): OK" in out
 
 
 def _stream_summary(out: str):
