@@ -46,6 +46,7 @@ any edge slot marked processed in ``processed0`` with sentinel support in
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import time
 from typing import NamedTuple
@@ -53,6 +54,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from repro_torch import trace
 from repro_torch.core import support as support_mod
 from repro_torch.device import resolve_device, synchronize
 from repro_torch.graphs.csr import CSRGraph, edge_keys
@@ -98,9 +100,25 @@ class PKTResult:
     sublevels: int          # total sub-level iterations (paper's S)
     compactions: int = 0    # live-edge compactions performed (DESIGN.md §10)
     #: phase wall-times {tables, support, peel, compact} — populated only
-    #: when ``pkt(..., phase_timings=True)`` (each phase is synced before
-    #: the clock is read, so attribution is honest but adds barriers)
+    #: when ``pkt(..., phase_timings=True)``, from the call's own spans
+    #: (each phase is synced before its span ends, so attribution is honest
+    #: but adds barriers)
     phases: dict | None = None
+
+
+#: ``pkt``'s spans by the phase of ``PKTResult.phases`` they count in
+PHASE_SPANS = {"tables": ("pkt.peel_csr", "pkt.tables"),
+               "support": ("pkt.support",),
+               "peel": ("pkt.loop", "pkt.readback"),
+               "compact": ("pkt.compact",)}
+
+
+def phase_seconds(spans) -> dict:
+    """``{phase: seconds}`` of ``pkt``'s spans among ``spans`` (phases
+    with no span left out)."""
+    return {phase: trace.seconds(spans, names)
+            for phase, names in PHASE_SPANS.items()
+            if any(sp.name in names for sp in spans)}
 
 
 def chunk_ranges(off: np.ndarray, chunk: int,
@@ -287,7 +305,7 @@ def _decrements(mode: str, N, Eid, S_ext, processed, inCurr, l, tabs, *,
 
 def _peel_loop(N, Eid, S_ext0, processed0, tabs, *, m: int,
                chunk: int | None, n_chunks: int | None, iters: int,
-               mode: str, pinned=None, stop_live: int = 0):
+               mode: str, pinned=None, stop_live: int = 0, span=None):
     """Full level/sub-level peel over extended (m+1,) edge state.
 
     ``tabs`` is a :class:`PeelCSR` for ``mode="kernel"`` and a
@@ -307,11 +325,15 @@ def _peel_loop(N, Eid, S_ext0, processed0, tabs, *, m: int,
     the level loop returns once the number of unprocessed edges drops to or
     below it — always at a level boundary, so the caller can gather the
     survivors into a compacted edge space and continue bitwise identically.
+
+    ``span`` (the recorded ``pkt.loop`` span, or None) gets the kernel
+    executor's ``wait_ns``: host ns blocked in the per-sub-level read.
     """
     S_ext, processed = S_ext0.clone(), processed0.clone()
     if mode == "kernel":
         return _peel_loop_kernel(N, Eid, S_ext, processed, tabs, m=m,
-                                 pinned=pinned, stop_live=stop_live)
+                                 pinned=pinned, stop_live=stop_live,
+                                 span=span)
     todo = (m + 1) - int(processed.sum())
     levels = subs = 0
     while todo > stop_live:
@@ -338,7 +360,7 @@ def _peel_loop(N, Eid, S_ext0, processed0, tabs, *, m: int,
 
 
 def _peel_loop_kernel(N, Eid, S_ext, processed, csr: PeelCSR, *, m: int,
-                      pinned, stop_live: int):
+                      pinned, stop_live: int, span=None):
     """``_peel_loop`` for the kernel executor; updates ``S_ext`` and
     ``processed`` in place and returns them with the loop counts.
 
@@ -360,6 +382,7 @@ def _peel_loop_kernel(N, Eid, S_ext, processed, csr: PeelCSR, *, m: int,
     front, counts = buf.front.unbind(), buf.counts.unbind()
     todo = (m + 1) - int(processed.sum())
     levels = subs = p = 0
+    wait = None if span is None else 0
     while todo > stop_live:
         l = torch.where(processed, _SENTINEL_S, S_ext).min().reshape(1)
         peel_kernel.dense_update(buf.dec, S_ext, processed, inCurr, l, csr.u,
@@ -377,10 +400,17 @@ def _peel_loop_kernel(N, Eid, S_ext, processed, csr: PeelCSR, *, m: int,
                 counts[1 - p], m=m)
             p = 1 - p
             subs += 1
-            n_front, n_done = counts[p][1:3].tolist()
+            if wait is None:
+                n_front, n_done = counts[p][1:3].tolist()
+            else:
+                t0 = time.perf_counter_ns()
+                n_front, n_done = counts[p][1:3].tolist()
+                wait += time.perf_counter_ns() - t0
             if not n_front:
                 break
         todo = (m + 1) - n_done
+    if span is not None:
+        span.attrs["wait_ns"] = wait
     return S_ext, processed, levels, subs
 
 
@@ -474,7 +504,7 @@ def _segmented_peel(problem: dict, out: np.ndarray, *, mode: str,
                     table_mode: str, compact_frac: float | None,
                     compact_min: int, chunk_req: int | None,
                     device: torch.device,
-                    timings: dict | None = None) -> tuple[int, int, int]:
+                    sync: bool = False) -> tuple[int, int, int]:
     """Run ``problem`` to the fixed point, compacting between segments.
 
     Each segment peels until ≤ ``compact_frac · m`` edges remain live (or to
@@ -482,6 +512,8 @@ def _segmented_peel(problem: dict, out: np.ndarray, *, mode: str,
     ``compact_min``); finished edges scatter their final S into ``out`` (at
     ``problem['ids']`` slots) and survivors are re-bucketed via
     ``_make_subproblem``.  Returns (levels, sublevels, compactions).
+    Each segment is a ``pkt.loop`` span and a ``pkt.readback`` span, each
+    compaction a ``pkt.compact`` span, synced before it ends when ``sync``.
     """
     levels = subs = compactions = 0
     while True:
@@ -492,20 +524,19 @@ def _segmented_peel(problem: dict, out: np.ndarray, *, mode: str,
             # clamp below the live count so every segment must retire at
             # least one level before the loop considers compacting again
             live_target = min(int(compact_frac * m), n_live - 1)
-        t0 = time.perf_counter()
-        S_ext, processed, lv, sb = _peel_loop(
-            problem["N"], problem["Eid"], problem["S_ext0"],
-            problem["processed0"], problem["tabs"], m=m,
-            chunk=problem["chunk"], n_chunks=problem["n_chunks"],
-            iters=problem["iters"], mode=mode, pinned=problem["pinned"],
-            stop_live=live_target)
-        S_np = S_ext[:m].cpu().numpy()
-        proc_np = processed[:m].cpu().numpy()
+        with trace.span("pkt.loop", m=m) as loop:
+            S_ext, processed, lv, sb = _peel_loop(
+                problem["N"], problem["Eid"], problem["S_ext0"],
+                problem["processed0"], problem["tabs"], m=m,
+                chunk=problem["chunk"], n_chunks=problem["n_chunks"],
+                iters=problem["iters"], mode=mode, pinned=problem["pinned"],
+                stop_live=live_target, span=loop)
+            trace.set(levels=lv, sublevels=sb)
+        with trace.span("pkt.readback"):
+            S_np = S_ext[:m].cpu().numpy()
+            proc_np = processed[:m].cpu().numpy()
         levels += lv
         subs += sb
-        if timings is not None:
-            timings["peel"] = timings.get("peel", 0.0) + \
-                (time.perf_counter() - t0)
         ids = problem["ids"]
         live = ~proc_np
         dead = proc_np & (ids >= 0)
@@ -513,21 +544,19 @@ def _segmented_peel(problem: dict, out: np.ndarray, *, mode: str,
         if not live.any():
             return levels, subs, compactions
         # ≤ live_target survivors: gather them into a compacted edge space
-        t0 = time.perf_counter()
         compactions += 1
         live_idx = np.nonzero(live)[0]
         pin_np = problem["pinned_np"]
-        problem = _make_subproblem(
-            problem["El"][live_idx], ids[live_idx], S_np[live_idx],
-            None if pin_np is None else pin_np[:m][live_idx],
-            chunk_req=chunk_req, table_mode=table_mode, mode=mode,
-            device=device)
+        with trace.span("pkt.compact", m=len(live_idx)):
+            problem = _make_subproblem(
+                problem["El"][live_idx], ids[live_idx], S_np[live_idx],
+                None if pin_np is None else pin_np[:m][live_idx],
+                chunk_req=chunk_req, table_mode=table_mode, mode=mode,
+                device=device)
+            if sync:
+                synchronize(device)
         if problem["live"] >= n_live:
             raise AssertionError("compaction must strictly shrink the problem")
-        if timings is not None:
-            synchronize(device)
-            timings["compact"] = timings.get("compact", 0.0) + \
-                (time.perf_counter() - t0)
 
 
 def peel_live_subset(El: np.ndarray, live_ids: np.ndarray,
@@ -610,8 +639,10 @@ def pkt(g: CSRGraph, *, chunk: int | None = None, mode: str = "kernel",
             either way.
         compact_min: minimum live-edge count for compaction to trigger.
         phase_timings: populate ``PKTResult.phases`` with a
-            {tables, support, peel, compact} wall-time split (adds sync
-            barriers between phases).
+            {tables, support, peel, compact} wall-time split, summed from
+            the call's own spans (``PHASE_SPANS``), which are recorded for
+            the call whether or not tracing is on (adds sync barriers
+            between phases).
         support_site: consult the "support" fault site of
             ``testing/chaos.py`` before the support phase.  The engine's
             batched flush passes ``False``: as in the JAX package, whose
@@ -641,52 +672,64 @@ def pkt(g: CSRGraph, *, chunk: int | None = None, mode: str = "kernel",
         raise ValueError(f"table_mode must be one of "
                          f"{support_mod.TABLE_MODES}, got {table_mode!r}")
     device = resolve_device(device)
-    timings: dict | None = {} if phase_timings else None
     if g.m == 0:
         return PKTResult(np.zeros(0, np.int32), np.zeros(0, np.int32), 0, 0,
-                         phases=timings)
+                         phases={} if phase_timings else None)
+    with (trace.collect() if phase_timings
+          else contextlib.nullcontext()) as recorded:
+        res = _pkt(g, chunk=chunk, mode=mode, support_mode=support_mode,
+                   table_mode=table_mode, support_table=support_table,
+                   peel_table=peel_table, compact_frac=compact_frac,
+                   compact_min=compact_min, support_site=support_site,
+                   sync=phase_timings, device=device)
+    if phase_timings:
+        res = dataclasses.replace(res, phases=phase_seconds(recorded))
+    return res
 
+
+def _pkt(g: CSRGraph, *, chunk, mode, support_mode, table_mode,
+         support_table, peel_table, compact_frac, compact_min, support_site,
+         sync: bool, device: torch.device) -> PKTResult:
+    """``pkt`` on a non-empty graph, its arguments checked.  Each phase is a
+    span (``pkt.support``, ``pkt.peel_csr`` or ``pkt.tables``, then
+    ``_segmented_peel``'s), synced before it ends when ``sync``."""
     # ---- support phase -----------------------------------------------------
     if support_site:
         fault_point("support", rung=f"{support_mode}/{table_mode}")
     # the kernel executor reads the CSR: no support table, host or device
     if support_mode == "kernel" or (table_mode == "device"
                                     and support_table is None):
-        S0_dev = support_mod._support_device(
-            g, mode=support_mode, chunk=chunk, device=device, timings=timings)
-        S0 = S0_dev.cpu().numpy()
+        with trace.span("pkt.support", m=g.m):
+            S0_dev = support_mod._support_device(
+                g, mode=support_mode, chunk=chunk, device=device)
+            S0 = S0_dev.cpu().numpy()
     else:
-        t0 = time.perf_counter()
-        stab = (support_table if support_table is not None
-                else support_mod.build_support_table(g))
-        if timings is not None:
-            timings["tables"] = timings.get("tables", 0.0) + \
-                (time.perf_counter() - t0)
-        t0 = time.perf_counter()
-        S0 = support_mod.compute_support(
-            g, stab, mode=support_mode, chunk=chunk, device=device)
-        S0_dev = torch.tensor(S0, device=device)
-        if timings is not None:
-            timings["support"] = timings.get("support", 0.0) + \
-                (time.perf_counter() - t0)
+        with trace.span("pkt.tables", m=g.m):
+            stab = (support_table if support_table is not None
+                    else support_mod.build_support_table(g))
+        with trace.span("pkt.support", m=g.m):
+            S0 = support_mod.compute_support(
+                g, stab, mode=support_mode, chunk=chunk, device=device)
+            S0_dev = torch.tensor(S0, device=device)
+            if sync:
+                synchronize(device)
 
     # ---- peel tables (torch executors) or CSR operands (kernel) -------------
-    t0 = time.perf_counter()
-    if mode == "kernel":
-        tabs = prepare_peel_csr(g, device=device)
-        chunk_eff = n_chunks = None
-    elif table_mode == "device" and peel_table is None:
-        tabs, chunk_eff, n_chunks = prepare_peel_device(g, chunk,
-                                                        device=device)
-    else:
-        ptab = (peel_table if peel_table is not None
-                else support_mod.build_peel_table(g))
-        tabs, chunk_eff, n_chunks = prepare_peel(ptab, g.m, chunk,
-                                                 device=device)
-    if timings is not None:
-        synchronize(device)
-        timings["tables"] = timings.get("tables", 0.0) + \
-            (time.perf_counter() - t0)
+    with trace.span("pkt.peel_csr" if mode == "kernel" else "pkt.tables",
+                    m=g.m):
+        if mode == "kernel":
+            tabs = prepare_peel_csr(g, device=device)
+            chunk_eff = n_chunks = None
+        elif table_mode == "device" and peel_table is None:
+            tabs, chunk_eff, n_chunks = prepare_peel_device(g, chunk,
+                                                            device=device)
+        else:
+            ptab = (peel_table if peel_table is not None
+                    else support_mod.build_peel_table(g))
+            tabs, chunk_eff, n_chunks = prepare_peel(ptab, g.m, chunk,
+                                                     device=device)
+        if sync:
+            synchronize(device)
 
     # ---- segmented peel with live-edge compaction --------------------------
     dev = g.device_arrays(device)
@@ -705,14 +748,13 @@ def pkt(g: CSRGraph, *, chunk: int | None = None, mode: str = "kernel",
     levels, subs, compactions = _segmented_peel(
         problem, S_out, mode=mode, table_mode=table_mode,
         compact_frac=compact_frac, compact_min=compact_min, chunk_req=chunk,
-        device=device, timings=timings)
+        device=device, sync=sync)
     return PKTResult(
         trussness=S_out.astype(np.int32) + 2,
         support=S0,
         levels=levels,
         sublevels=subs,
         compactions=compactions,
-        phases=timings,
     )
 
 

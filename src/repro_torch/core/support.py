@@ -29,12 +29,11 @@ arrays (DESIGN.md §10), "numpy" on the host.
 from __future__ import annotations
 
 import dataclasses
-import time
 
 import numpy as np
 import torch
 
-from repro_torch.device import resolve_device, synchronize
+from repro_torch.device import resolve_device
 from repro_torch.graphs.csr import CSRGraph
 from repro_torch.kernels import wedge_common
 from repro_torch.kernels.wedge_common import (chunk_layout, next_pow2,
@@ -243,16 +242,14 @@ def _build_peel_table_dev(u, v, Es, m_real: int, *, m: int, size: int,
 
 
 def _support_device(g: CSRGraph, *, mode: str, chunk: int | None,
-                    device: torch.device, timings: dict | None = None):
+                    device: torch.device):
     """Support phase on the device; returns (m,) int32 on ``device`` (no
     host round-trip — ``pkt`` feeds it to the peel).
 
     ``mode="kernel"`` reads the CSR (``kernels/support.py``) and builds no
     table; ``mode="torch"`` builds the oriented table on the device and runs
     the torch executor over it.  Both refuse the graphs whose padded table
-    would overflow the int32 layout, as the JAX package does.  With
-    ``timings`` the table build and the executor are attributed together to
-    "support", as in the JAX package, whose fused jit cannot separate them.
+    would overflow the int32 layout, as the JAX package does.
     """
     size = support_table_size(g)
     if size == 0:
@@ -260,7 +257,6 @@ def _support_device(g: CSRGraph, *, mode: str, chunk: int | None,
     size_pad = next_pow2(size)
     _check_table_size(size_pad)
     dev = g.device_arrays(device)
-    t0 = time.perf_counter()
     if mode == "kernel":
         from repro_torch.kernels.support import support_accumulate
 
@@ -275,10 +271,6 @@ def _support_device(g: CSRGraph, *, mode: str, chunk: int | None,
             size=size_pad)
         S = _support_torch(dev["N"], dev["Eid"], e1, cand, lo, hi,
                            _search_iters(g, oriented=True), g.m)
-    if timings is not None:
-        synchronize(device)
-        timings["support"] = timings.get("support", 0.0) + \
-            (time.perf_counter() - t0)
     return S
 
 

@@ -59,6 +59,7 @@ import time
 import numpy as np
 import torch
 
+from repro_torch import trace
 from repro_torch.core import support as support_mod
 from repro_torch.core.hierarchy import HIER_MODES, TrussHierarchy
 from repro_torch.core.pkt import (_COMPACT_FRAC, _COMPACT_MIN, PEEL_MODES,
@@ -66,7 +67,7 @@ from repro_torch.core.pkt import (_COMPACT_FRAC, _COMPACT_MIN, PEEL_MODES,
                                   truss_pkt)
 from repro_torch.core.triangle_list import _triangles_dev
 from repro_torch.device import resolve_device, synchronize
-from repro_torch.graphs.csr import (CSRGraph, build_csr,
+from repro_torch.graphs.csr import (PREPROCESS_SPANS, CSRGraph, build_csr,
                                     canonical_edges_with_rows,
                                     check_edge_array, degeneracy_order,
                                     edge_keys, relabel)
@@ -1108,17 +1109,17 @@ class IncrementalTruss:
         """From-scratch decomposition through the standard (KCO) pipeline:
         K1 and K2 on the card under the default executors."""
         self._hier = None        # full rebuild: community index rebuilt lazily
-        t0 = time.perf_counter()
-        g = build_csr(E, self.n)
-        if g.m == 0:
-            self.open_phases = {}
-            self._commit(g, np.zeros(0, np.int64), np.zeros(0, np.int32),
-                         _triangle_rows(g, self.device))
-            return
-        perm = degeneracy_order(E, self.n)
-        r_edges = relabel(E, perm)
-        gr = build_csr(r_edges, self.n)
-        t_prep = time.perf_counter() - t0
+        with trace.collect() as recorded:
+            g = build_csr(E, self.n)
+            if g.m == 0:
+                self.open_phases = {}
+                self._commit(g, np.zeros(0, np.int64), np.zeros(0, np.int32),
+                             _triangle_rows(g, self.device))
+                return
+            perm = degeneracy_order(E, self.n)
+            r_edges = relabel(E, perm)
+            gr = build_csr(r_edges, self.n)
+        t_prep = trace.seconds(recorded, PREPROCESS_SPANS)
         res = pkt(gr, chunk=self.chunk, mode=self.mode,
                   support_mode=self.support_mode, table_mode=self.table_mode,
                   compact_frac=self.compact_frac,
@@ -1135,7 +1136,8 @@ class IncrementalTruss:
         synchronize(self.device)
         #: phase breakdown of the most recent full (re)build: ``pkt``'s
         #: {tables, support, peel, compact} seconds, plus the host
-        #: preprocessing (CSR builds, degeneracy order) and the triangle list
+        #: preprocessing (the ``csr.*`` spans: CSR builds, degeneracy order,
+        #: relabelling) and the triangle list
         self.open_phases = dict(res.phases or {}, preprocess=t_prep,
                                 triangle_list=time.perf_counter() - t0)
         self._commit(g, T, S.astype(np.int32), tri)

@@ -27,6 +27,8 @@ from typing import Optional
 import numpy as np
 import torch
 
+from repro_torch import trace
+
 
 #: Largest vertex-id space for which ``lo * n + hi`` key packing stays inside
 #: int64: floor(sqrt(2**63 - 1)).  The CSR arrays themselves are int32, so the
@@ -35,6 +37,9 @@ import torch
 MAX_PACK_N = 3_037_000_499
 #: CSR layout bound: vertex ids live in int32 columns (Fig. 2 arrays).
 _MAX_N = np.iinfo(np.int32).max
+#: the spans of the host preprocessing helpers below (``repro_torch.trace``)
+PREPROCESS_SPANS = ("csr.canonical", "csr.order", "csr.relabel",
+                    "csr.build")
 
 
 def check_edge_array(edges) -> np.ndarray:
@@ -107,16 +112,18 @@ def canonical_edges_with_rows(edges) -> tuple[np.ndarray, np.ndarray,
     ``n`` the vertex-id space.  The validation of ``check_edge_array``
     applies (self-loops, negatives, huge ids all rejected).
     """
-    edges = check_edge_array(edges)
-    if edges.size == 0:
-        return (np.zeros((0, 2), np.int64), np.zeros(0, np.int64),
-                np.zeros(0, np.int64), 0)
-    n = int(edges.max()) + 1
-    lo = np.minimum(edges[:, 0], edges[:, 1])
-    hi = np.maximum(edges[:, 0], edges[:, 1])
-    uniq = np.unique(edge_keys(lo, hi, n))
-    E = np.stack([uniq // n, uniq % n], axis=1)
-    return E, lo, hi, n
+    with trace.span("csr.canonical"):
+        edges = check_edge_array(edges)
+        trace.set(m=len(edges))
+        if edges.size == 0:
+            return (np.zeros((0, 2), np.int64), np.zeros(0, np.int64),
+                    np.zeros(0, np.int64), 0)
+        n = int(edges.max()) + 1
+        lo = np.minimum(edges[:, 0], edges[:, 1])
+        hi = np.maximum(edges[:, 0], edges[:, 1])
+        uniq = np.unique(edge_keys(lo, hi, n))
+        E = np.stack([uniq // n, uniq % n], axis=1)
+        return E, lo, hi, n
 
 
 @dataclasses.dataclass(frozen=True)
@@ -221,55 +228,60 @@ def edges_from_arrays(src: np.ndarray, dst: np.ndarray, n: Optional[int] = None)
 
 def build_csr(edges: np.ndarray, n: Optional[int] = None) -> CSRGraph:
     """Build the full Fig. 2 structure from canonical (m,2) u<v edges."""
-    edges = np.asarray(edges)
-    if edges.size == 0:
-        n = int(n or 0)
-        return CSRGraph(
-            n=n, m=0,
-            Es=np.zeros(n + 1, np.int32), N=np.zeros(0, np.int32),
-            Eid=np.zeros(0, np.int32), El=np.zeros((0, 2), np.int32),
-            Eo=np.zeros(n, np.int32),
+    with trace.span("csr.build", m=len(edges)):
+        edges = np.asarray(edges)
+        if edges.size == 0:
+            n = int(n or 0)
+            return CSRGraph(
+                n=n, m=0,
+                Es=np.zeros(n + 1, np.int32), N=np.zeros(0, np.int32),
+                Eid=np.zeros(0, np.int32), El=np.zeros((0, 2), np.int32),
+                Eo=np.zeros(n, np.int32),
+            )
+        assert edges.ndim == 2 and edges.shape[1] == 2
+        assert np.all(edges[:, 0] < edges[:, 1]), \
+            "edges must be canonical u < v"
+        if n is None:
+            n = int(edges.max() + 1)
+        m = edges.shape[0]
+
+        # Edge ids follow lexicographic (u, v) order so that "lower edge id"
+        # is a stable total order (the tie-break used in concurrent
+        # triangle processing).
+        order = np.lexsort((edges[:, 1], edges[:, 0]))
+        El = edges[order].astype(np.int32)
+
+        # Symmetrize with edge ids attached to both directions.
+        eid = np.arange(m, dtype=np.int32)
+        src = np.concatenate([El[:, 0], El[:, 1]])
+        dst = np.concatenate([El[:, 1], El[:, 0]])
+        ids = np.concatenate([eid, eid])
+
+        # CSR by (src, dst) sort.
+        perm = np.lexsort((dst, src))
+        src, dst, ids = src[perm], dst[perm], ids[perm]
+        counts = np.bincount(src, minlength=n).astype(np.int64)
+        Es = np.zeros(n + 1, dtype=np.int64)
+        np.cumsum(counts, out=Es[1:])
+
+        # Eo: first slot with neighbor > row vertex (adjacency sorted
+        # ascending).
+        rows = np.arange(n, dtype=np.int64)
+        Eo = Es[:-1] + np.array(
+            [np.searchsorted(dst[Es[u]:Es[u + 1]], u, side="right")
+             for u in rows],
+            dtype=np.int64,
+        ) if n < (1 << 15) else _eo_vectorized(Es, dst, n)
+
+        g = CSRGraph(
+            n=n, m=m,
+            Es=Es.astype(np.int32),
+            N=dst.astype(np.int32),
+            Eid=ids.astype(np.int32),
+            El=El,
+            Eo=Eo.astype(np.int32),
         )
-    assert edges.ndim == 2 and edges.shape[1] == 2
-    assert np.all(edges[:, 0] < edges[:, 1]), "edges must be canonical u < v"
-    if n is None:
-        n = int(edges.max() + 1)
-    m = edges.shape[0]
-
-    # Edge ids follow lexicographic (u, v) order so that "lower edge id" is a
-    # stable total order (the tie-break used in concurrent triangle processing).
-    order = np.lexsort((edges[:, 1], edges[:, 0]))
-    El = edges[order].astype(np.int32)
-
-    # Symmetrize with edge ids attached to both directions.
-    eid = np.arange(m, dtype=np.int32)
-    src = np.concatenate([El[:, 0], El[:, 1]])
-    dst = np.concatenate([El[:, 1], El[:, 0]])
-    ids = np.concatenate([eid, eid])
-
-    # CSR by (src, dst) sort.
-    perm = np.lexsort((dst, src))
-    src, dst, ids = src[perm], dst[perm], ids[perm]
-    counts = np.bincount(src, minlength=n).astype(np.int64)
-    Es = np.zeros(n + 1, dtype=np.int64)
-    np.cumsum(counts, out=Es[1:])
-
-    # Eo: first slot with neighbor > row vertex (adjacency sorted ascending).
-    rows = np.arange(n, dtype=np.int64)
-    Eo = Es[:-1] + np.array(
-        [np.searchsorted(dst[Es[u]:Es[u + 1]], u, side="right") for u in rows],
-        dtype=np.int64,
-    ) if n < (1 << 15) else _eo_vectorized(Es, dst, n)
-
-    g = CSRGraph(
-        n=n, m=m,
-        Es=Es.astype(np.int32),
-        N=dst.astype(np.int32),
-        Eid=ids.astype(np.int32),
-        El=El,
-        Eo=Eo.astype(np.int32),
-    )
-    return g
+        return g
 
 
 def _eo_vectorized(Es: np.ndarray, dst: np.ndarray, n: int) -> np.ndarray:
@@ -286,10 +298,11 @@ def relabel(edges: np.ndarray, perm: np.ndarray) -> np.ndarray:
     Used for k-core ordering (KCO): perm[v] = rank of v in increasing coreness
     order, so after relabel the id orientation coincides with core orientation.
     """
-    e = perm[edges]
-    lo = np.minimum(e[:, 0], e[:, 1])
-    hi = np.maximum(e[:, 0], e[:, 1])
-    return np.stack([lo, hi], axis=1)
+    with trace.span("csr.relabel", m=len(edges)):
+        e = perm[edges]
+        lo = np.minimum(e[:, 0], e[:, 1])
+        hi = np.maximum(e[:, 0], e[:, 1])
+        return np.stack([lo, hi], axis=1)
 
 
 def degeneracy_order(edges: np.ndarray, n: int) -> np.ndarray:
@@ -300,12 +313,14 @@ def degeneracy_order(edges: np.ndarray, n: int) -> np.ndarray:
     """
     from repro_torch.core.kcore import kcore_numpy  # local import to avoid cycle
 
-    g = build_csr(edges, n)
-    core = kcore_numpy(g)
-    order = np.lexsort((np.arange(n), core))  # stable by id within coreness
-    perm = np.empty(n, dtype=np.int64)
-    perm[order] = np.arange(n)
-    return perm
+    with trace.span("csr.order", m=len(edges)):
+        g = build_csr(edges, n)
+        core = kcore_numpy(g)
+        # stable by id within coreness
+        order = np.lexsort((np.arange(n), core))
+        perm = np.empty(n, dtype=np.int64)
+        perm[order] = np.arange(n)
+        return perm
 
 
 def degree_order(edges: np.ndarray, n: int) -> np.ndarray:

@@ -11,8 +11,9 @@ wedges from the CSR and share the wedge intersection of
 ``ops.compute_support_kernel`` runs.  Each wrapper launches its kernel on
 CUDA tensors and runs its plain PyTorch version on CPU tensors, and counts
 both (``COUNTS``; the updates: ``peel.UPDATE_COUNTS`` after a fold,
-``peel.DENSE_COUNTS`` at a level's start); ``count_launches``
-reads the counts of one block of work.
+``peel.DENSE_COUNTS`` at a level's start), each thread on its own;
+``count_launches`` reads the calling thread's counts over one block of
+work.
 """
 
 import contextlib
@@ -41,15 +42,15 @@ def count_launches():
     Yields a dict that is filled when the block exits: ``{"support": n,
     "peel": n, "update": n, "intersect": n, "plain": n}`` — K1, K2, the
     sub-level updates (sparse and dense together) and K3 launches, and
-    calls of any kernel's plain version.  The counts are process-global, so work on
-    other threads during the block would be counted too.
+    calls of any kernel's plain version.  Only the calling thread's work
+    counts: launches made on other threads during the block do not.
     """
     mods = {"support": (support.COUNTS,), "peel": (peel.COUNTS,),
             "update": (peel.UPDATE_COUNTS, peel.DENSE_COUNTS),
             "intersect": (intersect.COUNTS,)}
 
     def read(field):
-        return {k: sum(getattr(c, field) for c in cs) for k, cs in
+        return {k: sum(c.mine()[field] for c in cs) for k, cs in
                 mods.items()}
 
     kernel0, plain0 = read("kernel"), read("plain")

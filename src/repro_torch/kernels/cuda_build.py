@@ -160,23 +160,60 @@ def check_launch(lib: ctypes.CDLL, name: str, code: int) -> None:
 class LaunchCounts:
     """How often a kernel module ran its CUDA kernel and its plain version.
 
-    ``kernel`` counts launches of the hand-written kernel (incremented only
-    where the wrapper launches it); ``plain`` counts calls of the plain
-    PyTorch version.  A run resets both and reads them afterwards to prove
-    which path it took.
+    Each thread counts on its own: ``launched`` (called only where the
+    wrapper launches the hand-written kernel) and ``ran_plain`` (a call of
+    the plain PyTorch version) add to the calling thread's counts, which
+    ``mine`` reads; ``kernel`` and ``plain`` are the sums over every thread.
+    A run resets them and reads them afterwards to prove which path it
+    took.
     """
 
     def __init__(self):
-        self.kernel = 0
-        self.plain = 0
+        self._lock = threading.Lock()
+        self._local = threading.local()
+        self._threads: list[list[int]] = []   # [kernel, plain] per thread
+
+    def _counts(self) -> list[int]:
+        c = self._local.__dict__.get("c")
+        if c is None:
+            c = self._local.c = [0, 0]
+            with self._lock:
+                self._threads.append(c)
+        return c
+
+    def launched(self) -> None:
+        """Count one launch of the kernel on the calling thread."""
+        self._counts()[0] += 1
+
+    def ran_plain(self) -> None:
+        """Count one call of the plain version on the calling thread."""
+        self._counts()[1] += 1
+
+    @property
+    def kernel(self) -> int:
+        """Kernel launches, over every thread."""
+        with self._lock:
+            return sum(c[0] for c in self._threads)
+
+    @property
+    def plain(self) -> int:
+        """Plain-version calls, over every thread."""
+        with self._lock:
+            return sum(c[1] for c in self._threads)
+
+    def mine(self) -> dict:
+        """``{"kernel": n, "plain": n}`` of the calling thread."""
+        c = self._counts()
+        return {"kernel": c[0], "plain": c[1]}
 
     def reset(self) -> None:
-        """Set both counts to 0."""
-        self.kernel = 0
-        self.plain = 0
+        """Set every thread's counts to 0."""
+        with self._lock:
+            for c in self._threads:
+                c[0] = c[1] = 0
 
     def as_dict(self) -> dict:
-        """``{"kernel": n, "plain": n}``."""
+        """``{"kernel": n, "plain": n}``, over every thread."""
         return {"kernel": self.kernel, "plain": self.plain}
 
 

@@ -121,7 +121,7 @@ def intersect_blocked(a, b, *, block_rows: int = 256):
             hitb.data_ptr(), _PATH_ROWS[key].data_ptr(), E, DA, DB,
             block_rows, stream)
     cuda_build.check_launch(lib, "intersect", code)
-    COUNTS.kernel += 1
+    COUNTS.launched()
     return cnt, hita, hitb
 
 
@@ -133,7 +133,7 @@ def intersect_ref(a, b):
     more than ``_REF_PAIRS`` pairs.
     """
     _check_rows(a, b)
-    COUNTS.plain += 1
+    COUNTS.ran_plain()
     E, DA = a.shape
     DB = b.shape[1]
     dev = a.device

@@ -200,7 +200,7 @@ def peel_decrement_fold(work_e, work_j, counts, l, u, v, Es, N, Eid, S_ext,
     _launch("peel", "peel_decrement_fold_launch", work_e, work_j, counts, l,
             u, v, Es, N, Eid, S_ext, processed, inCurr, pinned, dec, touched,
             WORK_SLICE)
-    COUNTS.kernel += 1
+    COUNTS.launched()
     return dec, touched
 
 
@@ -237,7 +237,7 @@ def peel_decrement_fold_ref(work_e, work_j, counts, l, u, v, Es, N, Eid,
     probe list, so it finds the exact lower bound.  The touched list comes
     out as ``nonzero(dec)``, in ascending order.
     """
-    COUNTS.plain += 1
+    COUNTS.ran_plain()
     dev = S_ext.device
     if dec is None:
         dec = torch.zeros(m + 1, dtype=torch.int32, device=dev)
@@ -317,14 +317,14 @@ def dense_update(dec, S_ext, processed, inCurr, l, u, v, Es, front, work_e,
     cuda_build.check_int32("counts", counts, dev, (4,))
     _launch("peel", "dense_update_launch", dec, S_ext, processed, inCurr, l,
             u, v, Es, front, work_e, work_j, counts, m, WORK_SLICE)
-    DENSE_COUNTS.kernel += 1
+    DENSE_COUNTS.launched()
 
 
 def dense_update_ref(dec, S_ext, processed, inCurr, l, u, v, Es, front,
                      work_e, work_j, counts, *, m: int) -> None:
     """Plain PyTorch version of ``dense_update`` (same contract); the id
     and work lists come out in ascending edge order."""
-    DENSE_COUNTS.plain += 1
+    DENSE_COUNTS.ran_plain()
     nxt = apply_decrements(dec, S_ext, processed, inCurr, l.reshape(()), m)
     inCurr.copy_(nxt)
     dec.zero_()
@@ -369,7 +369,7 @@ def sublevel_update(dec, S_ext, processed, inCurr, l, u, v, Es, touched,
     _launch("peel", "sparse_update_launch", dec, S_ext, processed, inCurr, l,
             u, v, Es, touched, front_in, counts_in, front_out, work_e, work_j,
             counts_out, m, WORK_SLICE)
-    UPDATE_COUNTS.kernel += 1
+    UPDATE_COUNTS.launched()
 
 
 def sublevel_update_ref(dec, S_ext, processed, inCurr, l, u, v, Es, touched,
@@ -377,7 +377,7 @@ def sublevel_update_ref(dec, S_ext, processed, inCurr, l, u, v, Es, touched,
                         counts_out, *, m: int) -> None:
     """Plain PyTorch version of ``sublevel_update`` (same contract); the
     next frontier's id and work lists come out in ascending edge order."""
-    UPDATE_COUNTS.plain += 1
+    UPDATE_COUNTS.ran_plain()
     _, n_front, n_done, n_touched = counts_in.tolist()
     old = front_in[:n_front].long()
     processed[old] = True

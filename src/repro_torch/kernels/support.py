@@ -94,7 +94,7 @@ def support_accumulate(u, v, Es, Eo, N, Eid, *, m: int, chunk: int,
             off.data_ptr(), N.data_ptr(), Eid.data_ptr(), S.data_ptr(),
             tri.data_ptr(), e_begin, e_end, chunk, stream)
     cuda_build.check_launch(lib, "support", code)
-    COUNTS.kernel += 1
+    COUNTS.launched()
     return S, tri
 
 
@@ -110,7 +110,7 @@ def support_accumulate_ref(u, v, Es, Eo, N, Eid, *, m: int, chunk: int,
     runs enough halvings for the longest ``N⁺`` list, so it finds the exact
     lower bound.
     """
-    COUNTS.plain += 1
+    COUNTS.ran_plain()
     e_begin, e_end = _edge_range(m, e_begin, e_end)
     dev = u.device
     S = torch.zeros(m + 1, dtype=torch.int32, device=dev)

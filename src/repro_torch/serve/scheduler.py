@@ -67,8 +67,10 @@ tensor and kernel launch and relies on no context the caller opened.
 Every dispatch returns host numpy after the card has finished (the
 engine's ``flush`` ends in ``align_to_input``), so stage times and deadline
 checks cover the device work.  Kernel launch counts
-(``repro_torch.kernels.count_launches``) are process-global: count around
-a whole scheduler phase, not around one request.
+(``repro_torch.kernels.count_launches``) are per thread: a block on the
+caller's thread does not see the launches of the engine's dispatches, and
+the engine's own counts (``stats["bucket_launches"]``, the
+``engine.dispatch`` span's ``launches``) see only them.
 
 Usage::
 

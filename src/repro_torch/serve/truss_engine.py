@@ -53,6 +53,7 @@ from typing import NamedTuple
 
 import numpy as np
 
+from repro_torch import trace
 from repro_torch.core import support as support_mod
 from repro_torch.core.hierarchy import HIER_MODES, TrussHierarchy
 from repro_torch.core.pkt import PEEL_MODES, align_to_input, pkt
@@ -103,31 +104,33 @@ def disjoint_union(graphs: list[CSRGraph]) -> CSROperand:
 
     Equal to ``build_csr`` of the concatenated, vertex-offset edge lists.
     """
-    ns = np.array([g.n for g in graphs], np.int64)
-    ms = np.array([g.m for g in graphs], np.int64)
-    v_off = np.concatenate([[0], np.cumsum(ns)])
-    e_off = np.concatenate([[0], np.cumsum(ms)])
-    s_off = 2 * e_off
-    n_tot, m_tot = int(v_off[-1]), int(e_off[-1])
-    if n_tot >= np.iinfo(np.int32).max or 2 * m_tot >= np.iinfo(np.int32).max:
-        raise ValueError(f"bucket union of n={n_tot}, m={m_tot} overflows "
-                         f"the int32 CSR layout")
-    parts = list(zip(graphs, v_off[:-1], e_off[:-1], s_off[:-1]))
+    with trace.span("engine.union", graphs=len(graphs)):
+        ns = np.array([g.n for g in graphs], np.int64)
+        ms = np.array([g.m for g in graphs], np.int64)
+        v_off = np.concatenate([[0], np.cumsum(ns)])
+        e_off = np.concatenate([[0], np.cumsum(ms)])
+        s_off = 2 * e_off
+        n_tot, m_tot = int(v_off[-1]), int(e_off[-1])
+        if (n_tot >= np.iinfo(np.int32).max
+                or 2 * m_tot >= np.iinfo(np.int32).max):
+            raise ValueError(f"bucket union of n={n_tot}, m={m_tot} "
+                             f"overflows the int32 CSR layout")
+        parts = list(zip(graphs, v_off[:-1], e_off[:-1], s_off[:-1]))
 
-    def cat(fn):
-        return np.concatenate([fn(*p) for p in parts]).astype(np.int32)
+        def cat(fn):
+            return np.concatenate([fn(*p) for p in parts]).astype(np.int32)
 
-    u = CSRGraph(
-        n=n_tot, m=m_tot,
-        Es=np.append(cat(lambda g, vo, eo, so: g.Es[:-1] + so),
-                     np.int32(2 * m_tot)),
-        N=cat(lambda g, vo, eo, so: g.N + vo),
-        Eid=cat(lambda g, vo, eo, so: g.Eid + eo),
-        El=np.concatenate([g.El + vo for g, vo, _, _ in parts]).astype(
-            np.int32).reshape(-1, 2),
-        Eo=cat(lambda g, vo, eo, so: g.Eo + so),
-    )
-    return CSROperand(g=u, edge_off=e_off)
+        u = CSRGraph(
+            n=n_tot, m=m_tot,
+            Es=np.append(cat(lambda g, vo, eo, so: g.Es[:-1] + so),
+                         np.int32(2 * m_tot)),
+            N=cat(lambda g, vo, eo, so: g.N + vo),
+            Eid=cat(lambda g, vo, eo, so: g.Eid + eo),
+            El=np.concatenate([g.El + vo for g, vo, _, _ in parts]).astype(
+                np.int32).reshape(-1, 2),
+            Eo=cat(lambda g, vo, eo, so: g.Eo + so),
+        )
+        return CSROperand(g=u, edge_off=e_off)
 
 
 @dataclasses.dataclass
@@ -339,45 +342,50 @@ class TrussEngine:
         rejected).  The result is aligned to the input rows:
         ``result(t)[i]`` is the trussness of ``edges[i]``.
         """
-        E, lo, hi, n = canonical_edges_with_rows(edges)
-        ticket = self._next_ticket
-        self._next_ticket += 1
-        self.stats["submitted"] += 1
+        with trace.span("engine.submit", ticket=self._next_ticket):
+            E, lo, hi, n = canonical_edges_with_rows(edges)
+            trace.set(m=len(E))
+            ticket = self._next_ticket
+            self._next_ticket += 1
+            self.stats["submitted"] += 1
 
-        if E.size == 0:
-            self._results[ticket] = np.zeros(0, np.int64)
+            if E.size == 0:
+                self._results[ticket] = np.zeros(0, np.int64)
+                return ticket
+            if E.shape[0] > self.max_edges:
+                raise ValueError(
+                    f"graph too large for this engine: m={E.shape[0]} "
+                    f"canonical edges exceeds max_edges={self.max_edges}; "
+                    f"decompose it directly with core.pkt.truss_pkt, or "
+                    f"raise max_edges")
+
+            if self.reorder:
+                perm = degeneracy_order(E, n)
+                r_edges = relabel(E, perm)
+            else:
+                perm = np.arange(n, dtype=np.int64)
+                r_edges = E
+            # key of each *input row* in the relabeled space (handles
+            # duplicate and endpoint-swapped rows: they map onto the same
+            # canonical edge)
+            rl, rh = perm[lo], perm[hi]
+            in_keys = edge_keys(np.minimum(rl, rh), np.maximum(rl, rh), n)
+
+            g = build_csr(r_edges, n)
+            # tables never materialize on the host: bucket by their exact
+            # entry counts (O(m) host math)
+            sup_size = support_mod.support_table_size(g)
+            peel_size = support_mod.peel_table_size(g)
+            key = self._size_class(g, sup_size, peel_size)
+            if self.table_mode == "device":
+                support_mod._check_table_size(max(key.sup_pad,
+                                                  key.peel_pad))
+            self._pending.append(_Pending(
+                ticket=ticket, g=g, n=n, in_keys=in_keys, key=key,
+                sup_size=sup_size, peel_size=peel_size, E=E))
+            if len(self._pending) >= self.max_pending:
+                self.flush()
             return ticket
-        if E.shape[0] > self.max_edges:
-            raise ValueError(
-                f"graph too large for this engine: m={E.shape[0]} canonical "
-                f"edges exceeds max_edges={self.max_edges}; decompose it "
-                f"directly with core.pkt.truss_pkt, or raise max_edges")
-
-        if self.reorder:
-            perm = degeneracy_order(E, n)
-            r_edges = relabel(E, perm)
-        else:
-            perm = np.arange(n, dtype=np.int64)
-            r_edges = E
-        # key of each *input row* in the relabeled space (handles duplicate
-        # and endpoint-swapped rows: they map onto the same canonical edge)
-        rl, rh = perm[lo], perm[hi]
-        in_keys = edge_keys(np.minimum(rl, rh), np.maximum(rl, rh), n)
-
-        g = build_csr(r_edges, n)
-        # tables never materialize on the host: bucket by their exact
-        # entry counts (O(m) host math)
-        sup_size = support_mod.support_table_size(g)
-        peel_size = support_mod.peel_table_size(g)
-        key = self._size_class(g, sup_size, peel_size)
-        if self.table_mode == "device":
-            support_mod._check_table_size(max(key.sup_pad, key.peel_pad))
-        self._pending.append(_Pending(
-            ticket=ticket, g=g, n=n, in_keys=in_keys, key=key,
-            sup_size=sup_size, peel_size=peel_size, E=E))
-        if len(self._pending) >= self.max_pending:
-            self.flush()
-        return ticket
 
     def submit_many(self, graphs) -> list[int]:
         """Submit each graph; returns order-aligned tickets."""
@@ -564,15 +572,20 @@ class TrussEngine:
     def _dispatch(self, group: list[_Pending], *, mode: str,
                   support_mode: str) -> list[np.ndarray]:
         """Decompose one bucket's graphs as disjoint unions → per-graph
-        trussness in ``g.El`` row order."""
+        trussness in ``g.El`` row order.  The unions' peel levels and
+        sub-levels go on the innermost open span (``engine.dispatch``)."""
         out = []
+        levels = sublevels = 0
         for run in self._unions(group):
             op = disjoint_union([p.g for p in run])
             res = pkt(op.g, chunk=self.chunk, mode=mode,
                       support_mode=support_mode, table_mode=self.table_mode,
                       support_site=False, device=self.device)
+            levels += res.levels
+            sublevels += res.sublevels
             for i in range(len(run)):
                 out.append(res.trussness[op.edge_off[i]:op.edge_off[i + 1]])
+        trace.set(levels=levels, sublevels=sublevels)
         return out
 
     def flush(self, only=None, *, mode: str | None = None,
@@ -615,35 +628,43 @@ class TrussEngine:
         if not by_key:
             return
 
-        for key, group in by_key.items():
-            warm = key in self.stats["buckets"]
-            t0 = time.perf_counter()
-            fault_point("flush", rung=eff_mode)
-            with count_launches() as counted:
-                truss_rows = self._dispatch(group, mode=eff_mode,
-                                            support_mode=eff_support)
-            launches = self.stats["bucket_launches"].setdefault(
-                key, dict.fromkeys(counted, 0))
-            for k, n in counted.items():
-                launches[k] += n
+        with trace.span("engine.flush"):
+            for key, group in by_key.items():
+                with trace.span("engine.dispatch", graphs=len(group)):
+                    self._flush_bucket(key, group, eff_mode, eff_support)
+        self.stats["flushes"] += 1
+
+    def _flush_bucket(self, key: SizeClass, group: list[_Pending],
+                      mode: str, support_mode: str) -> None:
+        """Dispatch one bucket, then align and deliver its results."""
+        warm = key in self.stats["buckets"]
+        t0 = time.perf_counter()
+        fault_point("flush", rung=mode)
+        with count_launches() as counted:
+            truss_rows = self._dispatch(group, mode=mode,
+                                        support_mode=support_mode)
+        trace.set(launches=dict(counted))
+        launches = self.stats["bucket_launches"].setdefault(
+            key, dict.fromkeys(counted, 0))
+        for k, n in counted.items():
+            launches[k] += n
+        with trace.span("engine.align"):
             for p, t in zip(group, truss_rows):
                 self._results[p.ticket] = align_to_input(
                     t.astype(np.int64), p.g, None, p.n, keys=p.in_keys)
-            # only now is the bucket done: drop its submissions from the
-            # pending queue (a dispatch failure above leaves them — and
-            # every bucket after them — pending and retryable)
-            done = {p.ticket for p in group}
-            self._pending = [p for p in self._pending
-                             if p.ticket not in done]
-            dt = time.perf_counter() - t0
-            self.stats["batches"] += 1
-            self.stats["buckets"].add(key)
-            self.stats["graphs_done"] += len(group)
-            self.stats["graph_seconds"] += dt
-            if warm:
-                self.stats["warm_seconds"] += dt
-                self.stats["warm_graphs"] += len(group)
-        self.stats["flushes"] += 1
+        # only now is the bucket done: drop its submissions from the
+        # pending queue (a dispatch failure above leaves them — and
+        # every bucket after them — pending and retryable)
+        done = {p.ticket for p in group}
+        self._pending = [p for p in self._pending if p.ticket not in done]
+        dt = time.perf_counter() - t0
+        self.stats["batches"] += 1
+        self.stats["buckets"].add(key)
+        self.stats["graphs_done"] += len(group)
+        self.stats["graph_seconds"] += dt
+        if warm:
+            self.stats["warm_seconds"] += dt
+            self.stats["warm_graphs"] += len(group)
 
     def flush_host(self, only=None) -> None:
         """Host-numpy flush: resolves the selected pending submissions with

@@ -1,0 +1,262 @@
+"""The port's spans and per-thread launch counts (``repro_torch.trace``,
+``repro_torch.kernels.count_launches``) on the CPU.
+
+Spans are recorded only after ``trace.enable()`` or while ``torch.profiler``
+records; they nest by thread, sit on the profiler's clock, carry the loop
+counts of ``pkt`` and the engine, and change no result.
+"""
+
+import threading
+import time
+
+import numpy as np
+import pytest
+from torch.profiler import ProfilerActivity, profile
+
+from repro_torch import trace
+from repro_torch.core.pkt import pkt
+from repro_torch.graphs.csr import build_csr
+from repro_torch.graphs.gen import ring_of_cliques_edges, rmat_edges
+from repro_torch.kernels import count_launches
+from repro_torch.serve import truss_engine as te
+from repro_torch.serve.truss_engine import TrussEngine
+
+
+@pytest.fixture(autouse=True)
+def clean_recorder():
+    trace.disable()
+    trace.clear()
+    yield
+    trace.disable()
+    trace.clear()
+
+
+def _graphs(k=6, seed=0):
+    rng = np.random.default_rng(seed)
+    out = []
+    for i in range(k):
+        e = ring_of_cliques_edges(2 + i % 3, 4 + i % 4, seed=i)
+        out.append(e[rng.permutation(len(e))])
+    return out
+
+
+def _engine_run(graphs):
+    eng = TrussEngine(device="cpu", max_pending=4)
+    return eng.map(graphs), eng
+
+
+def _under(how, fn):
+    """``fn()`` with recording switched on as ``how`` says."""
+    if how == "enable":
+        trace.enable()
+        try:
+            return fn()
+        finally:
+            trace.disable()
+    if how == "profiler":
+        with profile(activities=[ProfilerActivity.CPU]):
+            return fn()
+    return fn()
+
+
+@pytest.mark.parametrize("how", ["off", "enable", "profiler"])
+def test_records_only_while_enabled_or_profiled(how):
+    graphs = _graphs(5)
+    _under(how, lambda: _engine_run(graphs))
+    names = {sp.name for sp in trace.spans()}
+    if how == "off":
+        assert trace.spans() == [] and trace.dropped() == 0
+        assert trace.span("x").__enter__() is None
+        return
+    assert {"engine.submit", "engine.flush", "engine.dispatch",
+            "engine.union", "engine.align", "csr.canonical", "csr.order",
+            "csr.relabel", "csr.build", "pkt.support", "pkt.peel_csr",
+            "pkt.loop", "pkt.readback"} <= names
+    subs = [sp for sp in trace.spans() if sp.name == "engine.submit"]
+    assert sorted(sp.attrs["ticket"] for sp in subs) == list(range(5))
+    assert all(sp.attrs["m"] > 0 for sp in subs)
+    for sp in trace.spans():
+        assert sp.end_ns >= sp.start_ns > 0
+        assert sp.thread == threading.get_ident()
+
+
+def test_phase_timings_leave_the_buffer_empty_while_off():
+    g = build_csr(ring_of_cliques_edges(3, 5))
+    res = pkt(g, phase_timings=True, compact_frac=0.99, compact_min=0,
+              device="cpu")
+    assert set(res.phases) == {"tables", "support", "peel", "compact"}
+    assert trace.spans() == []
+
+
+def test_parents_follow_nesting_and_auto_flush_is_a_child_of_submit():
+    trace.enable()
+    _engine_run(_graphs(6))
+    by_id = {sp.id: sp for sp in trace.spans()}
+
+    def ancestors(sp):
+        while sp.parent is not None:
+            sp = by_id[sp.parent]
+            yield sp
+
+    for sp in by_id.values():
+        for a in ancestors(sp):
+            assert a.start_ns <= sp.start_ns and sp.end_ns <= a.end_ns
+    flushes = [sp for sp in by_id.values() if sp.name == "engine.flush"]
+    # max_pending 4 of 6 graphs: one auto-flush inside the fourth submit,
+    # then map's own flush at top level
+    assert [by_id[f.parent].name if f.parent else None
+            for f in flushes] == ["engine.submit", None]
+    assert by_id[flushes[0].parent].attrs["ticket"] == 3
+    for name, parent in [("engine.dispatch", "engine.flush"),
+                         ("engine.union", "engine.dispatch"),
+                         ("engine.align", "engine.dispatch"),
+                         ("pkt.loop", "engine.dispatch"),
+                         ("csr.canonical", "engine.submit")]:
+        for sp in by_id.values():
+            if sp.name == name:
+                assert parent in {a.name for a in ancestors(sp)}, name
+
+
+def test_span_bounds_hold_their_profiler_annotation():
+    names = [f"t.span{i}" for i in range(6)]
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        with trace.span("t.warm"):
+            pass
+        for name in names:
+            with trace.span(name):
+                time.sleep(0.002)
+    ann = {ev.name(): ev for ev in prof.profiler.kineto_results.events()
+           if ev.name().startswith(trace.PREFIX)}
+    spans = {sp.name: sp for sp in trace.spans()}
+    slack = 1_000_000
+    for name in names:
+        ev, sp = ann[trace.PREFIX + name], spans[name]
+        start, end = ev.start_ns(), ev.start_ns() + ev.duration_ns()
+        assert sp.start_ns - slack <= start <= end <= sp.end_ns + slack
+
+
+@pytest.mark.parametrize("compact", [False, True])
+def test_loop_spans_carry_the_sublevels(compact):
+    g = build_csr(rmat_edges(7, 8, seed=3))
+    kw = dict(compact_frac=0.99, compact_min=0) if compact else {}
+    trace.enable()
+    res = pkt(g, device="cpu", **kw)
+    loops = [sp for sp in trace.spans() if sp.name == "pkt.loop"]
+    assert len(loops) == res.compactions + 1
+    assert sum(sp.attrs["sublevels"] for sp in loops) == res.sublevels
+    assert sum(sp.attrs["levels"] for sp in loops) == res.levels
+    assert all(sp.attrs["wait_ns"] >= 0 for sp in loops)
+    assert (res.compactions > 0) == compact
+
+
+def test_dispatch_spans_sum_their_pkt_calls(monkeypatch):
+    calls = []
+    inner = te.pkt
+
+    def counted(g, **kw):
+        res = inner(g, **kw)
+        calls.append(res)
+        return res
+
+    monkeypatch.setattr(te, "pkt", counted)
+    trace.enable()
+    _engine_run(_graphs(9, seed=1))
+    spans = trace.spans()
+    by_id = {sp.id: sp for sp in spans}
+
+    def under(sp, anc):
+        while sp.parent is not None:
+            sp = by_id[sp.parent]
+            if sp is anc:
+                return True
+        return False
+
+    dispatches = [sp for sp in spans if sp.name == "engine.dispatch"]
+    assert sum(d.attrs["graphs"] for d in dispatches) == 9
+    assert (sum(d.attrs["sublevels"] for d in dispatches)
+            == sum(r.sublevels for r in calls))
+    assert (sum(d.attrs["levels"] for d in dispatches)
+            == sum(r.levels for r in calls))
+    for d in dispatches:
+        loops = [sp for sp in spans if sp.name == "pkt.loop" and under(sp, d)]
+        assert d.attrs["sublevels"] == sum(sp.attrs["sublevels"]
+                                           for sp in loops)
+        unions = [sp for sp in spans
+                  if sp.name == "engine.union" and under(sp, d)]
+        # on the CPU every "kernel" call runs its plain version: K1 once a
+        # union, K2 and the update every sub-level, the dense update every
+        # level
+        assert d.attrs["launches"]["plain"] == (
+            len(unions) + 2 * d.attrs["sublevels"] + d.attrs["levels"])
+
+
+@pytest.mark.parametrize("how", ["enable", "profiler"])
+def test_results_are_bitwise_equal_with_recording_on(how):
+    graphs = _graphs(7, seed=2)
+    g = build_csr(rmat_edges(7, 8, seed=5))
+    want_e, _ = _engine_run(graphs)
+    want_p = pkt(g, device="cpu", compact_frac=0.99, compact_min=0)
+    got_e, _ = _under(how, lambda: _engine_run(graphs))
+    got_p = _under(how, lambda: pkt(g, device="cpu", compact_frac=0.99,
+                                    compact_min=0))
+    for a, b in zip(want_e, got_e):
+        assert np.array_equal(a, b)
+    for f in ("trussness", "support", "levels", "sublevels", "compactions"):
+        assert np.array_equal(getattr(want_p, f), getattr(got_p, f)), f
+
+
+@pytest.mark.parametrize("main_works", [False, True])
+def test_count_launches_sees_only_its_own_thread(main_works):
+    g_main = build_csr(ring_of_cliques_edges(3, 5))
+    g_other = build_csr(rmat_edges(7, 8, seed=1))
+    ready = threading.Barrier(2, timeout=60)
+    seen = {}
+
+    def other():
+        with count_launches() as counted:
+            ready.wait()
+            seen["res"] = pkt(g_other, device="cpu")
+            ready.wait()
+        seen["counts"] = counted
+
+    t = threading.Thread(target=other)
+    t.start()
+    with count_launches() as mine:
+        ready.wait()
+        res = pkt(g_main, device="cpu") if main_works else None
+        ready.wait()
+    t.join(timeout=60)
+    assert not t.is_alive()
+
+    def plain(r):
+        return 1 + 2 * r.sublevels + r.levels if r is not None else 0
+
+    assert mine == {"support": 0, "peel": 0, "update": 0, "intersect": 0,
+                    "plain": plain(res)}
+    assert seen["counts"]["plain"] == plain(seen["res"])
+
+
+def test_buffer_bound_counts_dropped():
+    rec = trace.Recorder(limit=3)
+    for _ in range(5):
+        with rec.span("x"):
+            pass
+    assert rec.spans() == [] and rec.dropped() == 0
+    rec.enable()
+    for i in range(5):
+        with rec.span("x", i=i) as sp:
+            assert sp.attrs == {"i": i}
+    assert [sp.attrs["i"] for sp in rec.spans()] == [0, 1, 2]
+    assert rec.dropped() == 2
+    rec.clear()
+    assert rec.spans() == [] and rec.dropped() == 0
+
+
+def test_profiling_flag_follows_the_profiler():
+    assert not trace.profiling()
+    with profile(activities=[ProfilerActivity.CPU]):
+        assert trace.profiling()
+        with trace.span("t.inside") as sp:
+            assert sp is not None
+    assert not trace.profiling()
+    assert [sp.name for sp in trace.spans()] == ["t.inside"]
