@@ -16,13 +16,21 @@ line each with its seconds:
    compaction: K2's touched list against ``nonzero(dec)``, the sparse
    update against its plain version, the dense update and the torch step;
    CUDA-graph times (the sparse and the dense update apart) beside the
-   bounds computed from each call's inputs;
+   bounds computed from each call's inputs.  Then the fused peel loop (one
+   launch a segment) against the host loop over those three kernels,
+   bitwise on the state, levels and sub-levels: from the middle level with
+   and without pinned edges, to the end and to the compaction point, and a
+   pinned region peel (``peel_live_subset``);
 4. main path: Graph500 R-MAT scale 17 / edge factor 16 / seed 0 through
    ``truss_pkt``'s steps with the default "kernel" executors, launch counts
-   reset just before and read just after, then again with the torch
-   executors; the two must agree bitwise; then one traced run (device time
-   by kernel) and one instrumented run (every K2 and update launch's
-   bound, and the update bound with a dense ``dec`` read beside it);
+   reset just before and read just after (1 K1, 1 fused loop a segment, no
+   standalone K2 or update), then again with the torch executors; the two
+   must agree bitwise; then the host loop over the standalone kernels, the
+   loop the fused launch replaced, bitwise and with its launch counts, and
+   the peel phase of both in turns (host, fused, fused, host); one traced
+   run of each (device time by kernel) and one instrumented host-loop run
+   (every K2 and update launch's bound, and the update bound with a dense
+   ``dec`` read beside it);
 5. small-graph oracle: ``truss_pkt`` on the card vs ``truss_numpy``;
 6. engine: a seeded mix of 64 submissions through one ``TrussEngine``
    flush, each result equal to ``truss_pkt`` of the same graph;
@@ -41,15 +49,15 @@ line each with its seconds:
    small-graph oracle suite;
 10. cli: ``repro_torch.launch.truss.main`` with ``--verify`` on
     ``rmat-small`` for each of its four engines;
-11. incremental: the scale-17 graph opened as an engine handle (K1 and K2
-    launches counted from 0 over the open), its trussness against
+11. incremental: the scale-17 graph opened as an engine handle (K1 and
+    peel-loop launches counted from 0 over the open), its trussness against
     ``truss_pkt`` and its triangle list against the device enumeration and
     the support; then churn batches of ``benchmarks/inc_bench.py``'s shape
     (remove k edges, add k absent ones: 4 at 0.1 % of m, 2 at 1 %), each
     with its launches counted from 0, its region peels by rung, and its
     trussness held bitwise against a from-scratch ``truss_pkt``; one more
-    0.1 % batch forced onto the device rung if none took it (K2 over
-    ``peel_live_subset`` with the boundary pinned); the host
+    0.1 % batch forced onto the device rung if none took it (the peel
+    loop over ``peel_live_subset`` with the boundary pinned); the host
     ``triangles_through`` of a 1 % batch timed alone; batched ≡ sequential
     ≡ from scratch on ``rmat-small`` and ``ba-small``; and a seeded
     "corrupt" fault at the region site raising ``IntegrityError`` with the
@@ -65,13 +73,14 @@ line each with its seconds:
     (a watchdog on, the kernels built before), the CLI's seeded ``--serve``
     schedule replayed against it (90/9/1 query/update/open, 100 requests at
     100 per second), then the engine phase's 64 graphs through
-    ``submit_async``; K1 and K2 launches counted from 0 over the phase;
-    latencies by kind, the stage breakdown and each repair's mode; every
+    ``submit_async``; K1 and peel-loop launches counted from 0 over the
+    phase; latencies by kind, the stage breakdown and each repair's mode; every
     result bitwise against a synchronous replay on a second handle and the
     synchronous engine;
 15. chaos: forced kernel-rung flush failures demote the flush ladder to
-    ``chunked+torch`` and recovery re-promotes it to ``kernel+kernel`` (K2
-    launches per request: none on the demoted rung, some after), outputs
+    ``chunked+torch`` and recovery re-promotes it to ``kernel+kernel``
+    (peel-loop launches per request: none on the demoted rung, some
+    after), outputs
     bitwise; one injected fault per dispatch site retried to parity; the
     CLI's ``--serve 200 --fault-rate 0.1 --deadline-ms 250 --verify`` on
     ``rmat-small``;
@@ -91,6 +100,7 @@ Run from the repository root; it takes no arguments::
 
 from __future__ import annotations
 
+import contextlib
 import functools
 import importlib
 import json
@@ -624,10 +634,11 @@ def k2_case(label, st, mods) -> dict:
                                  bound_by="bytes", bytes=s_bytes))
 
 
-def check_k2(g, dev, S0, mods) -> list:
+def check_k2(g, dev, S0, mods) -> tuple:
     """K2 and the update at four states of a full-size run: a level's first
     sub-level at the start, at a middle level (with and without pinned
-    edges) and after a compaction."""
+    edges) and after a compaction; and ``check_loop`` from the middle
+    level.  Returns (the K2 cases, the loop check)."""
     pkt_mod, sup = mods["pkt"], mods["support"]
     m = g.m
     tabs, chunk, n_chunks = pkt_mod.prepare_peel_device(g, None, device=dev)
@@ -656,6 +667,8 @@ def check_k2(g, dev, S0, mods) -> list:
     cases.append(k2_case("middle level, pinned",
                          dict(st, S_ext=S_mid, processed=p_mid, pinned=pin),
                          mods))
+    loops = check_loop(g, dev, mods, dict(st, S_ext=S_mid, processed=p_mid,
+                                          pinned=pin))
     # after a compaction: peel to the default compaction point, then gather
     # the survivors into a compacted subproblem as the segmented peel does
     target = int(pkt_mod._COMPACT_FRAC * m)
@@ -679,7 +692,7 @@ def check_k2(g, dev, S0, mods) -> list:
             n_chunks=sub_t["n_chunks"], iters=sub["iters"], N=sub["N"],
             Eid=sub["Eid"], m=sub["m"], pinned=None, S_ext=sub["S_ext0"],
             processed=sub["processed0"]), mods))
-    return cases
+    return cases, loops
 
 
 #: the reference tests' K3 shapes (``tests/test_kernels.py``) and row blocks
@@ -907,6 +920,7 @@ def kernel_counts(mods) -> dict:
                 peel=mods["kpeel"].COUNTS.as_dict(),
                 update=mods["kpeel"].UPDATE_COUNTS.as_dict(),
                 dense=mods["kpeel"].DENSE_COUNTS.as_dict(),
+                loop=mods["kpeel"].LOOP_COUNTS.as_dict(),
                 intersect=mods["kint"].COUNTS.as_dict())
 
 
@@ -914,8 +928,79 @@ def reset_counts(mods) -> None:
     """Set every kernel's counts to 0."""
     for c in (mods["ksupport"].COUNTS, mods["kpeel"].COUNTS,
               mods["kpeel"].UPDATE_COUNTS, mods["kpeel"].DENSE_COUNTS,
-              mods["kint"].COUNTS):
+              mods["kpeel"].LOOP_COUNTS, mods["kint"].COUNTS):
         c.reset()
+
+
+@contextlib.contextmanager
+def host_peel_loop(kpeel):
+    """Inside the block the kernel executor peels with ``host_loop``, the
+    host loop over the three standalone kernels, instead of the fused
+    launch: the loop before it, for parity and for timing."""
+    fused = kpeel.peel_loop
+    kpeel.peel_loop = kpeel.host_loop
+    try:
+        yield
+    finally:
+        kpeel.peel_loop = fused
+
+
+def loop_pair(kpeel, state, m, pinned=None, stop_live=0) -> dict:
+    """The fused loop and the host loop from one state (``S_ext,
+    processed, csr, N, Eid``), bitwise on the state, levels and
+    sub-levels; CUDA-event milliseconds of each."""
+    S_ext, processed, csr, N, Eid = state
+    out = {}
+    for name, loop in (("host", kpeel.host_loop), ("fused", kpeel.peel_loop)):
+        S, P = S_ext.clone(), processed.clone()
+        t0, t1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        t0.record()
+        res = loop(S, P, csr.u, csr.v, csr.Es, N, Eid, pinned, m=m,
+                   work_cap=csr.work_cap, stop_live=stop_live)
+        t1.record()
+        torch.cuda.synchronize()
+        out[name] = (S, P, res, t0.elapsed_time(t1))
+    (hS, hP, hr, h_ms), (fS, fP, fr, f_ms) = out["host"], out["fused"]
+    if not (torch.equal(hS, fS) and torch.equal(hP, fP)
+            and (hr.levels, hr.sublevels) == (fr.levels, fr.sublevels)):
+        raise AssertionError(f"fused loop differs from the host loop "
+                             f"(pinned {pinned is not None}, stop_live "
+                             f"{stop_live}): {fr} vs {hr}")
+    return dict(pinned=pinned is not None, stop_live=stop_live,
+                levels=fr.levels, sublevels=fr.sublevels,
+                live_after=int((~fP).sum()), host_ms=h_ms, fused_ms=f_ms,
+                fused_host_reads=fr.host_reads, bitwise_equal=True)
+
+
+def check_loop(g, dev, mods, st) -> dict:
+    """The fused loop against the host loop from the middle level ``st``
+    (with and without its pinned edges, to the end and to the compaction
+    point), and a pinned region peel through ``peel_live_subset`` with the
+    fused loop and with the host loop."""
+    pkt_mod, kp = mods["pkt"], mods["kpeel"]
+    m = st["m"]
+    state = (st["S_ext"], st["processed"], st["csr"], st["N"], st["Eid"])
+    target = int(pkt_mod._COMPACT_FRAC * m)
+    cases = [loop_pair(kp, state, m, pin, stop)
+             for pin in (None, st["pinned"]) for stop in (0, target)]
+    rng = np.random.default_rng(SEED + 1)
+    S0 = st["S_ext"][:m].cpu().numpy()
+    live = np.sort(rng.choice(m, size=m // 4, replace=False))
+    pinned = rng.random(live.shape[0]) < 0.25
+    t0 = time.perf_counter()
+    got = pkt_mod.peel_live_subset(g.El, live, S0[live], pinned, device=dev)
+    t_fused = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    with host_peel_loop(kp):
+        want = pkt_mod.peel_live_subset(g.El, live, S0[live], pinned,
+                                        device=dev)
+    t_host = time.perf_counter() - t0
+    if not np.array_equal(got, want):
+        raise AssertionError("pinned region peel: the fused loop differs "
+                             "from the host loop")
+    return dict(cases=cases, region=dict(
+        live=int(live.size), pinned=int(pinned.sum()), fused_seconds=t_fused,
+        host_seconds=t_host, bitwise_equal=True))
 
 
 def sync(dev) -> None:
@@ -1010,10 +1095,10 @@ def check_incremental(edges, dev, mods, TrussEngine, cli,
     t_open = time.perf_counter() - t0
     open_counts = kernel_counts(mods)
     if (open_counts["support"]["kernel"] < 1
-            or open_counts["peel"]["kernel"] < 1
+            or open_counts["loop"]["kernel"] < 1
             or any(c["plain"] for c in open_counts.values())):
-        raise AssertionError(f"open did not run K1 and K2 on the card: "
-                             f"{open_counts}")
+        raise AssertionError(f"open did not run K1 and the peel loop on "
+                             f"the card: {open_counts}")
     inc = h._inc
     t0 = time.perf_counter()
     ref = pkt_mod.truss_pkt(h.edges, device=dev)
@@ -1071,10 +1156,10 @@ def check_incremental(edges, dev, mods, TrussEngine, cli,
         batches.append(row)
     pinned_k2 = [b for b in batches if b["mode"] == "local"
                  and b["region_peels"]["device"] and b["boundary"]
-                 and b["launches"]["peel"]]
+                 and b["launches"]["loop"]]
     if not pinned_k2:
-        raise AssertionError("no batch ran K2 over a pinned region on the "
-                             "card")
+        raise AssertionError("no batch ran the peel loop over a pinned "
+                             "region on the card")
     # the host probe of a 1 % batch's new triangles (``triangles_through``
     # over the inserted edges' ids in the new graph), timed alone: the 1 %
     # batches above fall back before their insertion phase reaches it
@@ -1323,10 +1408,10 @@ def check_serve(edges, fleet, dev, mods, cli, TrussEngine,
     if failed:
         raise AssertionError(f"serve: {len(failed)} requests failed: "
                              f"{failed[:5]}")
-    if (counts["support"]["kernel"] < 1 or counts["peel"]["kernel"] < 1
+    if (counts["support"]["kernel"] < 1 or counts["loop"]["kernel"] < 1
             or any(c["plain"] for c in counts.values())):
-        raise AssertionError(f"serve did not run K1 and K2 on the card: "
-                             f"{counts}")
+        raise AssertionError(f"serve did not run K1 and the peel loop on "
+                             f"the card: {counts}")
     # a retried or demoted dispatch may have run on the torch or host rungs,
     # which count no plain call: only a run that never left the kernels'
     # rungs reports launches
@@ -1402,7 +1487,7 @@ def check_chaos(dev, mods, datasets, cli, TrussEngine, TrussScheduler,
             c = kernel_counts(mods)
             per_request.append(dict(
                 rung_after=sched.stats()["resilience"]["flush"]["rung"],
-                k1=c["support"]["kernel"], k2=c["peel"]["kernel"],
+                k1=c["support"]["kernel"], loop=c["loop"]["kernel"],
                 plain=sum(v["plain"] for v in c.values()),
                 bitwise_equal=bool(np.array_equal(got, want))))
         flush = sched.stats()["resilience"]["flush"]
@@ -1410,8 +1495,8 @@ def check_chaos(dev, mods, datasets, cli, TrussEngine, TrussScheduler,
                  and (flush["failures"], flush["demotions"], flush["probes"],
                       flush["promotions"]) == (2, 1, 1, 1)
                  and flush["rung"] == "kernel+kernel")
-    k2_ok = (per_request[0]["k2"] == 0 and per_request[1]["k2"] > 0
-             and per_request[2]["k2"] > 0
+    k2_ok = (per_request[0]["loop"] == 0 and per_request[1]["loop"] > 0
+             and per_request[2]["loop"] > 0
              and not any(r["plain"] for r in per_request))
     if not (ladder_ok and k2_ok
             and all(r["bitwise_equal"] for r in per_request)
@@ -1662,9 +1747,10 @@ def main() -> int:
     k1 = check_k1(g, dev, mods)
     S0 = k1.pop("S0")
     emit("kernel_check_k1", **k1)
-    k2_cases = check_k2(g, dev, S0, mods)
+    k2_cases, loop_check = check_k2(g, dev, S0, mods)
     for case in k2_cases:
         emit("kernel_check_k2", **case)
+    emit("kernel_check_loop", **loop_check)
     del S0
     torch.cuda.empty_cache()
     emit("kernel_check", seconds=time.perf_counter() - t0)
@@ -1690,11 +1776,12 @@ def main() -> int:
     peak = torch.cuda.max_memory_allocated()
     pkt_mod._active_chunk_mask = chunk_mask
     if (counts["support"]["kernel"] != 1
-            or counts["peel"]["kernel"] != res.sublevels
-            or counts["update"]["kernel"] != res.sublevels
-            or counts["dense"]["kernel"] != res.levels):
-        raise AssertionError(f"main path did not launch the kernels once "
-                             f"per phase / sub-level / level: {counts}")
+            or counts["loop"]["kernel"] != res.compactions + 1
+            or counts["peel"]["kernel"] or counts["update"]["kernel"]
+            or counts["dense"]["kernel"]):
+        raise AssertionError(f"main path did not launch K1 once and the "
+                             f"fused peel loop once per segment, with no "
+                             f"standalone K2 or update: {counts}")
     if any(c["plain"] for c in counts.values()) or mask_calls:
         raise AssertionError(f"main path ran a plain version or the chunk "
                              f"mask ({len(mask_calls)} calls): {counts}")
@@ -1718,11 +1805,10 @@ def main() -> int:
          max_trussness=int(res.trussness.max()),
          triangles=int(res.support.sum()) // 3, levels=res.levels,
          sublevels=res.sublevels, compactions=res.compactions,
-         # the peel loop reads the host once per sub-level (its loop
-         # test) and three times per segment (the live count at its start,
-         # the S and processed copies at its end); compactions split the
-         # peel into compactions + 1 segments
-         host_syncs_in_peel=res.sublevels + 3 * (res.compactions + 1),
+         # the fused loop reads the host once per segment (its result),
+         # then the S and processed copies at its end; compactions split
+         # the peel into compactions + 1 segments
+         host_syncs_in_peel=3 * (res.compactions + 1),
          phases=res.phases, kernel_seconds=t_kernel,
          preprocess_seconds=t_prep,
          torch_executor_seconds=t_torch, max_memory_allocated=peak,
@@ -1730,38 +1816,81 @@ def main() -> int:
     main_counts = counts
     del ref
     torch.cuda.empty_cache()
-    # where the main path's device time goes: one more kernel-path run,
-    # traced (outside the counted window above)
+    # the host loop over the standalone kernels (the loop the fused launch
+    # replaced): the same results with its launch counts, and the peel
+    # phase of both in turns
+    peel_seconds = {"host": [], "fused": []}
+    for name in ("host", "fused", "fused", "host"):
+        reset_counts(mods)
+        with (host_peel_loop(kpeel) if name == "host"
+              else contextlib.nullcontext()):
+            r = pkt_mod.pkt(g, phase_timings=True, device=dev)
+        c = kernel_counts(mods)
+        if not (np.array_equal(r.trussness, res.trussness)
+                and (r.levels, r.sublevels, r.compactions)
+                == (res.levels, res.sublevels, res.compactions)):
+            raise AssertionError(f"main path with the {name} loop differs")
+        if name == "host":
+            if (c["peel"]["kernel"] != res.sublevels
+                    or c["update"]["kernel"] != res.sublevels
+                    or c["dense"]["kernel"] != res.levels
+                    or c["loop"]["kernel"]):
+                raise AssertionError(f"the host loop did not launch the "
+                                     f"kernels once per sub-level / level: "
+                                     f"{c}")
+            counts = c
+        peel_seconds[name].append(r.phases["peel"])
+    host_counts = counts
+    emit("main_path_loops", peel_seconds=peel_seconds,
+         host_loop_launches=host_counts, fused_launches=main_counts,
+         resident_grids=kpeel.resident_grids(),
+         bitwise_equal_to_host_loop=True)
+    # where the main path's device time goes: one more run of each loop,
+    # traced (outside the counted windows above)
     main_profile = profile_run(
         lambda: pkt_mod.pkt(g, device=dev),
-        named=dict(peel_decrement_fold="peel_kernel",
-                   sparse_update="sparse_update_kernel",
-                   dense_update="dense_update_kernel",
-                   support_accumulate="support_kernel"),
-        sequence="peel_kernel")
-    k2_launch_ms = main_profile.pop("sequence_ms")
+        named=dict(peel_loop="peel_loop_kernel",
+                   support_accumulate="support_kernel"))
+    main_profile.pop("sequence_ms")
     emit("main_path_profile", **main_profile)
-    # the bound of every K2 and update launch of one decomposition, from
-    # each launch's own inputs (an instrumented run: it reads them back)
+    if main_profile["named"]["peel_loop"]["calls"] != main_counts["loop"][
+            "kernel"]:
+        raise AssertionError(f"the profile saw "
+                             f"{main_profile['named']['peel_loop']} loop "
+                             f"launches, the main path made "
+                             f"{main_counts['loop']['kernel']}")
+    with host_peel_loop(kpeel):
+        host_profile = profile_run(
+            lambda: pkt_mod.pkt(g, device=dev),
+            named=dict(peel_decrement_fold="peel_kernel",
+                       sparse_update="sparse_update_kernel",
+                       dense_update="dense_update_kernel",
+                       support_accumulate="support_kernel"),
+            sequence="peel_kernel")
+    k2_launch_ms = host_profile.pop("sequence_ms")
+    emit("main_path_profile_host_loop", **host_profile)
+    # the bound of every K2 and update launch of one host-loop
+    # decomposition, from each launch's own inputs (an instrumented run: it
+    # reads them back)
     t0 = time.perf_counter()
-    with K2Bounds(mods) as k2_bounds:
+    with host_peel_loop(kpeel), K2Bounds(mods) as k2_bounds:
         res_b = pkt_mod.pkt(g, device=dev)
     if not np.array_equal(res_b.trussness, res.trussness):
         raise AssertionError("instrumented run differs from the main path")
     for key, label in (("peel", "peel_decrement_fold"),
                        ("update", "sparse_update"),
                        ("dense", "dense_update")):
-        if main_profile["named"][label]["calls"] != counts[key]["kernel"]:
+        if host_profile["named"][label]["calls"] != counts[key]["kernel"]:
             raise AssertionError(f"the profile saw "
-                                 f"{main_profile['named'][label]} {label} "
-                                 f"launches, the main path made "
+                                 f"{host_profile['named'][label]} {label} "
+                                 f"launches, the host loop made "
                                  f"{counts[key]['kernel']}")
     k2_total = dict(k2_bounds.summed("fold"),
-                    device_ms=main_profile["named"]["peel_decrement_fold"])
+                    device_ms=host_profile["named"]["peel_decrement_fold"])
     update_total = dict(k2_bounds.summed("update"),
-                        device_ms=main_profile["named"]["sparse_update"])
+                        device_ms=host_profile["named"]["sparse_update"])
     dense_total = dict(k2_bounds.summed("dense"),
-                       device_ms=main_profile["named"]["dense_update"])
+                       device_ms=host_profile["named"]["dense_update"])
     # K2's launches by the wedge rows of their frontier: the profile's
     # launch times beside the instrumented run's bounds (same launch order)
     folds = [c for c in k2_bounds.calls if c[0] == "fold"]
@@ -1821,8 +1950,11 @@ def main() -> int:
                        graphs=key_of.count(k), **v)
                   for k, v in eng.stats["bucket_launches"].items()]
     for row in per_bucket:
-        if row["support"] < 1 or row["peel"] < 1 or row["plain"]:
-            raise AssertionError(f"engine bucket skipped a kernel: {row}")
+        if (row["support"] < 1 or row["loop"] < 1 or row["plain"]
+                or row["peel"] or row["update"]):
+            raise AssertionError(f"engine bucket skipped a kernel or "
+                                 f"launched a standalone K2 or update: "
+                                 f"{row}")
     emit("engine", graphs=len(fleet), size_classes=len(buckets),
          edges=int(sum(e.shape[0] for e in fleet)),
          submit_seconds=t_submit, flush_seconds=t_flush,
@@ -2027,6 +2159,7 @@ def main() -> int:
              source="src/repro_torch/kernels/csrc/peel.cu",
              replaces="src/repro/kernels/peel.py:107",
              launches=main_counts["peel"]["kernel"],
+             launches_host_loop=host_counts["peel"]["kernel"],
              launches_per_open=inc_summary["launches_per_open"]["peel"],
              launches_per_update_batch=[b["launches"]["peel"]
                                         for b in inc_batches],
@@ -2046,8 +2179,10 @@ def main() -> int:
              replaces="src/repro/core/pkt.py:264",
              launches=(main_counts["update"]["kernel"]
                        + main_counts["dense"]["kernel"]),
-             launches_sparse=main_counts["update"]["kernel"],
-             launches_level_start=main_counts["dense"]["kernel"],
+             launches_host_loop=(host_counts["update"]["kernel"]
+                                 + host_counts["dense"]["kernel"]),
+             launches_sparse=host_counts["update"]["kernel"],
+             launches_level_start=host_counts["dense"]["kernel"],
              max_abs_err=max(c["update"]["max_abs_err"] for c in k2_cases),
              state=k2_first["state"], ms=upd_first["ms"],
              dense_ms=upd_first["dense_ms"],
@@ -2061,6 +2196,26 @@ def main() -> int:
                                + dense_total["bound_ms"]),
              per_pkt_bound_ms_dense_dec=(update_total["bound_ms_dense_dec"]
                                     + dense_total["bound_ms_dense_dec"])),
+        # the fused loop: one launch a segment runs the fold and both
+        # updates; per_pkt_* are one decomposition's, beside the host loop's
+        # K2 and update launches summed
+        dict(name="peel_loop", route="cuda",
+             source="src/repro_torch/kernels/csrc/peel.cu",
+             replaces="none: the JAX package's peel loop is a "
+                      "lax.while_loop (src/repro/core/pkt.py:217)",
+             launches=main_counts["loop"]["kernel"],
+             launches_per_open=inc_summary["launches_per_open"]["loop"],
+             launches_per_update_batch=[b["launches"]["loop"]
+                                        for b in inc_batches],
+             launches_serve=serve["launches"]["loop"],
+             bitwise_equal_to_host_loop=True,
+             per_pkt_device_ms=main_profile["named"]["peel_loop"]["ms"],
+             host_loop_per_pkt_device_ms=(
+                 k2_total["device_ms"]["ms"] + update_total["device_ms"]["ms"]
+                 + dense_total["device_ms"]["ms"]),
+             peel_seconds=peel_seconds["fused"],
+             host_loop_peel_seconds=peel_seconds["host"],
+             resident_grid=kpeel.resident_grids()),
         # the widest bucket; the all_buckets_* keys sum the six launches of
         # one compute_support_kernel call
         dict(name="intersect_blocked", route="cuda",

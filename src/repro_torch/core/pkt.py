@@ -22,7 +22,8 @@ Three peel executors (``mode`` / ``peel_mode``), bitwise identical:
                  (no peel table exists) and lists the edges it touches,
                  then the sparse state update that visits the old frontier
                  and those edges and forms the next frontier's work list
-                 on the device; a dense pass starts each level.
+                 on the device; a dense pass starts each level.  On the
+                 card a whole segment of levels is one launch.
   mode="chunked": torch ops over the rows of the table chunks that hold
                  frontier edges (``_active_chunk_mask``).
   mode="dense":  torch ops over the whole table every sub-level, masked.
@@ -30,14 +31,16 @@ Three peel executors (``mode`` / ``peel_mode``), bitwise identical:
 The support phase has its own executor axis (``support_mode`` ∈
 ``core.support.SUPPORT_MODES``: "kernel", "torch").
 
-**The loops run on the host.**  The JAX package keeps the level and
-sub-level loops on the device (``lax.while_loop``).  Here Python drives them
-and reads one small tensor per sub-level: ``[#frontier, #processed]`` as
-one ``.tolist()``, which answers both the sub-level test and, when the level
-ends, the level test.  A decomposition therefore syncs once per sub-level;
-each compaction segment adds one sync for its live count at the start and
-the copy of its results at the end.  The level value ``l`` never leaves the
-device.
+**Where the loops run.**  The JAX package keeps the level and sub-level
+loops on the device (``lax.while_loop``).  So does the kernel executor on
+the card: one cooperative launch (``kernels/peel.py: peel_loop``) runs a
+whole compaction segment — each level's start, its folds and sparse
+updates, the level and segment tests — and the host reads
+``[levels, sublevels, n_done, status]`` once at its end, then copies the
+results.  On CPU tensors the same loop runs from the host
+(``kernels/peel.py: host_loop``) and reads ``[#frontier, #processed]``
+once per sub-level, as the torch executors (``mode="chunked"|"dense"``)
+also do.  The level value ``l`` never leaves the device.
 
 The peel runs over *extended* edge state: slot ``m`` is the sentinel, and
 any edge slot marked processed in ``processed0`` with sentinel support in
@@ -48,7 +51,6 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
-import time
 from typing import NamedTuple
 
 import numpy as np
@@ -62,7 +64,7 @@ from repro_torch.kernels import peel as peel_kernel
 from repro_torch.kernels import wedge_common
 from repro_torch.testing.chaos import fault_point
 
-_SENTINEL_S = 1 << 30
+_SENTINEL_S = peel_kernel.SENTINEL_S
 
 PEEL_MODES = ("chunked", "dense", "kernel")
 
@@ -327,13 +329,21 @@ def _peel_loop(N, Eid, S_ext0, processed0, tabs, *, m: int,
     survivors into a compacted edge space and continue bitwise identically.
 
     ``span`` (the recorded ``pkt.loop`` span, or None) gets the kernel
-    executor's ``wait_ns``: host ns blocked in the per-sub-level read.
+    executor's ``host_reads`` and ``wait_ns``: its blocking reads of the
+    device's counts and the host ns spent in them.
     """
     S_ext, processed = S_ext0.clone(), processed0.clone()
     if mode == "kernel":
-        return _peel_loop_kernel(N, Eid, S_ext, processed, tabs, m=m,
-                                 pinned=pinned, stop_live=stop_live,
-                                 span=span)
+        # one call of the fused loop: on the card one launch runs the
+        # segment and the host reads the card once; on CPU tensors its
+        # plain version drives the steps and reads once per sub-level
+        res = peel_kernel.peel_loop(S_ext, processed, tabs.u, tabs.v, tabs.Es,
+                                    N, Eid, pinned, m=m,
+                                    work_cap=tabs.work_cap,
+                                    stop_live=stop_live)
+        if span is not None:
+            span.attrs.update(host_reads=res.host_reads, wait_ns=res.wait_ns)
+        return S_ext, processed, res.levels, res.sublevels
     todo = (m + 1) - int(processed.sum())
     levels = subs = 0
     while todo > stop_live:
@@ -356,61 +366,6 @@ def _peel_loop(N, Eid, S_ext0, processed0, tabs, *, m: int,
             if not n_front:
                 break
         todo = (m + 1) - n_done
-    return S_ext, processed, levels, subs
-
-
-def _peel_loop_kernel(N, Eid, S_ext, processed, csr: PeelCSR, *, m: int,
-                      pinned, stop_live: int, span=None):
-    """``_peel_loop`` for the kernel executor; updates ``S_ext`` and
-    ``processed`` in place and returns them with the loop counts.
-
-    A level starts with the level value ``l = min(live S)`` on the device
-    and the dense update over a zero ``dec`` and an empty frontier, which
-    forms the level's first frontier (never empty: some live edge holds the
-    minimum) and counts the processed slots.  A sub-level is two launches:
-    the decrement fold over the frontier's work list, which also lists the
-    edges it touches, then the sparse update, which visits the old frontier
-    and the touched edges only and writes the next frontier's id and work
-    lists.  The frontier id lists and their counts alternate between two
-    buffers (``p``): an update reads one and writes the other.  The host
-    then reads ``[#frontier, #processed]`` once.
-    """
-    dev = S_ext.device
-    inCurr = torch.zeros(m + 1, dtype=torch.bool, device=dev)
-    buf = peel_kernel.buffers(m, csr.work_cap, dev)
-    work = (buf.work_e, buf.work_j)
-    front, counts = buf.front.unbind(), buf.counts.unbind()
-    todo = (m + 1) - int(processed.sum())
-    levels = subs = p = 0
-    wait = None if span is None else 0
-    while todo > stop_live:
-        l = torch.where(processed, _SENTINEL_S, S_ext).min().reshape(1)
-        peel_kernel.dense_update(buf.dec, S_ext, processed, inCurr, l, csr.u,
-                                 csr.v, csr.Es, front[p], *work, counts[p],
-                                 m=m)
-        levels += 1
-        while True:
-            peel_kernel.peel_decrement_fold(
-                *work, counts[p], l, csr.u, csr.v, csr.Es, N, Eid, S_ext,
-                processed, inCurr, pinned, m=m, dec=buf.dec,
-                touched=buf.touched)
-            peel_kernel.sublevel_update(
-                buf.dec, S_ext, processed, inCurr, l, csr.u, csr.v, csr.Es,
-                buf.touched, front[p], counts[p], front[1 - p], *work,
-                counts[1 - p], m=m)
-            p = 1 - p
-            subs += 1
-            if wait is None:
-                n_front, n_done = counts[p][1:3].tolist()
-            else:
-                t0 = time.perf_counter_ns()
-                n_front, n_done = counts[p][1:3].tolist()
-                wait += time.perf_counter_ns() - t0
-            if not n_front:
-                break
-        todo = (m + 1) - n_done
-    if span is not None:
-        span.attrs["wait_ns"] = wait
     return S_ext, processed, levels, subs
 
 

@@ -11,7 +11,8 @@ wedges from the CSR and share the wedge intersection of
 ``ops.compute_support_kernel`` runs.  Each wrapper launches its kernel on
 CUDA tensors and runs its plain PyTorch version on CPU tensors, and counts
 both (``COUNTS``; the updates: ``peel.UPDATE_COUNTS`` after a fold,
-``peel.DENSE_COUNTS`` at a level's start), each thread on its own;
+``peel.DENSE_COUNTS`` at a level's start; ``peel.LOOP_COUNTS`` the fused
+peel loop, one launch per peel segment), each thread on its own;
 ``count_launches`` reads the calling thread's counts over one block of
 work.
 """
@@ -23,16 +24,17 @@ from repro_torch.kernels.intersect import intersect_blocked, intersect_ref
 from repro_torch.kernels.ops import compute_support_kernel
 from repro_torch.kernels.peel import (dense_update, dense_update_ref,
                                       peel_decrement_fold,
-                                      peel_decrement_fold_ref,
-                                      sublevel_update, sublevel_update_ref)
+                                      peel_decrement_fold_ref, peel_loop,
+                                      peel_loop_ref, sublevel_update,
+                                      sublevel_update_ref)
 from repro_torch.kernels.support import (support_accumulate,
                                          support_accumulate_ref)
 
 __all__ = ["count_launches", "compute_support_kernel", "dense_update",
            "dense_update_ref", "intersect_blocked", "intersect_ref",
-           "peel_decrement_fold", "peel_decrement_fold_ref",
-           "sublevel_update", "sublevel_update_ref", "support_accumulate",
-           "support_accumulate_ref"]
+           "peel_decrement_fold", "peel_decrement_fold_ref", "peel_loop",
+           "peel_loop_ref", "sublevel_update", "sublevel_update_ref",
+           "support_accumulate", "support_accumulate_ref"]
 
 
 @contextlib.contextmanager
@@ -40,13 +42,15 @@ def count_launches():
     """Count the kernel launches and plain-version calls inside the block.
 
     Yields a dict that is filled when the block exits: ``{"support": n,
-    "peel": n, "update": n, "intersect": n, "plain": n}`` — K1, K2, the
-    sub-level updates (sparse and dense together) and K3 launches, and
-    calls of any kernel's plain version.  Only the calling thread's work
-    counts: launches made on other threads during the block do not.
+    "peel": n, "update": n, "loop": n, "intersect": n, "plain": n}`` — K1,
+    K2, the sub-level updates (sparse and dense together), the fused peel
+    loop and K3 launches, and calls of any kernel's plain version.  Only
+    the calling thread's work counts: launches made on other threads during
+    the block do not.
     """
     mods = {"support": (support.COUNTS,), "peel": (peel.COUNTS,),
             "update": (peel.UPDATE_COUNTS, peel.DENSE_COUNTS),
+            "loop": (peel.LOOP_COUNTS,),
             "intersect": (intersect.COUNTS,)}
 
     def read(field):

@@ -80,13 +80,51 @@
 //    sparse one takes.  Its processed count is one add per block: one add
 //    per warp (8,448 at scale 17) to one address serialized the launch.
 //
+// peel_loop_kernel runs a whole peel segment in one launch: what the host
+// loop drives one launch at a time (kernels/peel.py: host_loop), separated
+// by grid-wide barriers.  It replaces no TPU kernel: the JAX package runs
+// the same loop as a lax.while_loop on the device.
+//  * A level starts with l = min(live S), folded into a device word with one
+//    atomicMin per block, and the processed count beside it; then the dense
+//    walk forms the level's first frontier.  A sub-level is the fold, then
+//    the sparse update.  The level ends when the new frontier is empty, and
+//    the segment at a level boundary once (m + 1) - n_done <= stop_live.
+//  * One launch, one host read per segment: the host launched three kernels
+//    and read [#frontier, #processed] back once per sub-level, and the card
+//    idled between them (PERF.md).
+//  * The bodies are the standalone kernels' (__device__ functions shared
+//    with them).  State that a later phase of the same launch rewrites is
+//    read with plain loads, never through the read-only cache (__ldg or a
+//    const __restrict__ kernel parameter), which is not kept coherent
+//    within a launch; the barrier (cooperative_groups grid sync) orders the
+//    phases.
+//  * Every block reads the same counts after a barrier, so every block
+//    takes the same branch.  A counter that a phase writes is reset before
+//    the barrier that opens that phase, by a row that no block reads across
+//    that barrier: the level words alternate by level, the count rows by
+//    sub-level as the frontier lists do.
+//  * The grid is the blocks the SMs hold at once (a cooperative launch
+//    needs every block resident), at most one block per 256 slots: a small
+//    union gets a few blocks and cheap barriers.
+//  * Each sub-level retires at least one edge, so a segment has at most m
+//    sub-levels; past that the kernel stops and reports it (status 1), and
+//    the wrapper raises.
+//
 // What bounds them: per sub-level, the adjacency lists the frontier's edges
 // scan and probe, Eid of the hit slots and the state of the touched edges
 // (K2); the old frontier's and the touched edges' state, the touched list
 // and the next frontier (sparse update); one pass over the (m + 1,) state
-// (dense update, once per level).  chip_smoke.py counts those bytes and the
-// search compares from the run's own states.
+// (dense update, once per level; the fused loop's level start adds one
+// more).  chip_smoke.py counts those bytes and the search compares from the
+// run's own states.
+#include <climits>
+
+#include <cooperative_groups.h>
+
 #include "wedge_common.cuh"
+
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -94,24 +132,28 @@ constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 // the id a lane past the end of the slice searches for (never stored)
 constexpr int kNoId = -1;
+// the support of a processed slot in the level minimum (core/pkt.py:
+// _SENTINEL_S, kernels/peel.py: SENTINEL_S)
+constexpr int kSentinelS = 1 << 30;
 
 // One wedge hit of frontier edge e1: candidate slot c, probe slot p.  The
 // edges it decrements come back in *d2 / *d3 (-1 when none); the caller
 // issues the adds, so that a lane has all of its adds in flight at once.
+// S, proc and curr are read with plain loads: the fused loop rewrites them
+// between its folds.
 __device__ __forceinline__ void fold_hit(
-    int e1, int c, int p, int l, const int* __restrict__ Eid,
-    const int* __restrict__ S, const uint8_t* __restrict__ proc,
-    const uint8_t* __restrict__ curr, const uint8_t* __restrict__ pin,
-    int* d2, int* d3) {
+    int e1, int c, int p, int l, const int* __restrict__ Eid, const int* S,
+    const uint8_t* proc, const uint8_t* curr,
+    const uint8_t* __restrict__ pin, int* d2, int* d3) {
   const int e2 = __ldg(Eid + c);
   const int e3 = __ldg(Eid + p);
-  if (__ldg(proc + e2) || __ldg(proc + e3)) return;
-  const bool in2 = __ldg(curr + e2) != 0;
-  const bool in3 = __ldg(curr + e3) != 0;
+  if (proc[e2] || proc[e3]) return;
+  const bool in2 = curr[e2] != 0;
+  const bool in3 = curr[e3] != 0;
   const bool pin2 = pin != nullptr && __ldg(pin + e2) != 0;
   const bool pin3 = pin != nullptr && __ldg(pin + e3) != 0;
-  if (__ldg(S + e2) > l && (!in3 || e1 < e3) && !pin2) *d2 = e2;
-  if (__ldg(S + e3) > l && (!in2 || e1 < e2) && !pin3) *d3 = e3;
+  if (S[e2] > l && (!in3 || e1 < e3) && !pin2) *d2 = e2;
+  if (S[e3] > l && (!in2 || e1 < e2) && !pin3) *d3 = e3;
 }
 
 // A warp's staging area for the touched list in shared memory: a step
@@ -132,30 +174,24 @@ __device__ __forceinline__ void flush_stage(const int* stage, int n,
   __syncwarp();
 }
 
-// counts: int32 [n_items, n_front, n_done, n_touched]; the fold reads
-// n_items and adds its touched edges to n_touched (0 at the launch).
-__global__ void __launch_bounds__(kThreads)
-peel_kernel(const int* __restrict__ work_e, const int* __restrict__ work_j,
-            int* __restrict__ counts, const int* __restrict__ level,
-            const int* __restrict__ u, const int* __restrict__ v,
-            const int* __restrict__ Es, const int* __restrict__ N,
-            const int* __restrict__ Eid, const int* __restrict__ S,
-            const uint8_t* __restrict__ proc,
-            const uint8_t* __restrict__ curr,
-            const uint8_t* __restrict__ pin, int* __restrict__ dec,
-            int* __restrict__ touched, int slice) {
+// The fold over n_items work items at level l (K2's body); adds its
+// touched edges to *n_touched.  All threads of the grid call it.
+__device__ __forceinline__ void fold(
+    int n_items, const int* work_e, const int* work_j, int* n_touched, int l,
+    const int* __restrict__ u, const int* __restrict__ v,
+    const int* __restrict__ Es, const int* __restrict__ N,
+    const int* __restrict__ Eid, const int* S, const uint8_t* proc,
+    const uint8_t* curr, const uint8_t* __restrict__ pin, int* dec,
+    int* touched, int slice) {
   __shared__ int stages[kWarps][kStage];
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   int* stage = stages[warp];
   int staged = 0;
-  const int n_items = counts[0];
-  int* n_touched = counts + 3;
-  const int l = __ldg(level);
   const int all_warps = gridDim.x * kWarps;
   for (int t = blockIdx.x * kWarps + warp; t < n_items; t += all_warps) {
-    const int e1 = __ldg(work_e + t);
-    const int j = __ldg(work_j + t);
+    const int e1 = work_e[t];
+    const int j = work_j[t];
     const int a = __ldg(u + e1);
     const int b = __ldg(v + e1);
     const int a0 = __ldg(Es + a);
@@ -216,6 +252,22 @@ peel_kernel(const int* __restrict__ work_e, const int* __restrict__ work_j,
     }
   }
   if (staged > 0) flush_stage(stage, staged, touched, n_touched);
+}
+
+// counts: int32 [n_items, n_front, n_done, n_touched]; the fold reads
+// n_items and adds its touched edges to n_touched (0 at the launch).
+__global__ void __launch_bounds__(kThreads)
+peel_kernel(const int* __restrict__ work_e, const int* __restrict__ work_j,
+            int* __restrict__ counts, const int* __restrict__ level,
+            const int* __restrict__ u, const int* __restrict__ v,
+            const int* __restrict__ Es, const int* __restrict__ N,
+            const int* __restrict__ Eid, const int* __restrict__ S,
+            const uint8_t* __restrict__ proc,
+            const uint8_t* __restrict__ curr,
+            const uint8_t* __restrict__ pin, int* __restrict__ dec,
+            int* __restrict__ touched, int slice) {
+  fold(counts[0], work_e, work_j, counts + 3, __ldg(level), u, v, Es, N, Eid,
+       S, proc, curr, pin, dec, touched, slice);
 }
 
 // The next frontier's bookkeeping for one warp step: lanes with `next` set
@@ -315,19 +367,14 @@ __device__ __forceinline__ unsigned dense_walk(
 // more than m / kDenseShare edges.
 constexpr int kDenseShare = 8;
 
-// in / out: int32 [n_items, n_front, n_done, n_touched] of this sub-level
-// (read) and of the next (zeroed before the launch, written).
-__global__ void __launch_bounds__(kThreads)
-sparse_update_kernel(int* __restrict__ dec, int* __restrict__ S,
-                     uint8_t* __restrict__ proc, uint8_t* __restrict__ curr,
-                     const int* __restrict__ level, const int* __restrict__ u,
-                     const int* __restrict__ v, const int* __restrict__ Es,
-                     const int* __restrict__ touched,
-                     const int* __restrict__ front_in,
-                     const int* __restrict__ in, int* __restrict__ front_out,
-                     int* __restrict__ work_e, int* __restrict__ work_j,
-                     int* __restrict__ out, int m, int slice) {
-  const int l = __ldg(level);
+// The sparse update's body: in / out as for sparse_update_kernel.  All
+// threads of the grid call it.
+__device__ __forceinline__ void sparse_update(
+    int* dec, int* S, uint8_t* proc, uint8_t* curr, int l,
+    const int* __restrict__ u, const int* __restrict__ v,
+    const int* __restrict__ Es, const int* touched, const int* front_in,
+    const int* in, int* front_out, int* work_e, int* work_j, int* out, int m,
+    int slice) {
   const int lane = threadIdx.x & 31;
   const int n_front = in[1];
   const int n_touched = in[3];
@@ -340,7 +387,7 @@ sparse_update_kernel(int* __restrict__ dec, int* __restrict__ S,
     return;
   }
   for (int i = tid; i < n_front; i += stride) {
-    const int e = __ldg(front_in + i);
+    const int e = front_in[i];
     proc[e] = 1;
     curr[e] = 0;
   }
@@ -351,7 +398,7 @@ sparse_update_kernel(int* __restrict__ dec, int* __restrict__ S,
     int e = 0;
     int items = 0;
     if (t < n_touched) {
-      e = __ldg(touched + t);
+      e = touched[t];
       const int s = max(S[e] - dec[e], l);
       S[e] = s;
       dec[e] = 0;
@@ -363,6 +410,22 @@ sparse_update_kernel(int* __restrict__ dec, int* __restrict__ S,
     }
     append_next(next, e, items, front_out, work_e, work_j, out);
   }
+}
+
+// in / out: int32 [n_items, n_front, n_done, n_touched] of this sub-level
+// (read) and of the next (zeroed before the launch, written).
+__global__ void __launch_bounds__(kThreads)
+sparse_update_kernel(int* __restrict__ dec, int* __restrict__ S,
+                     uint8_t* __restrict__ proc, uint8_t* __restrict__ curr,
+                     const int* __restrict__ level, const int* __restrict__ u,
+                     const int* __restrict__ v, const int* __restrict__ Es,
+                     const int* __restrict__ touched,
+                     const int* __restrict__ front_in,
+                     const int* __restrict__ in, int* __restrict__ front_out,
+                     int* __restrict__ work_e, int* __restrict__ work_j,
+                     int* __restrict__ out, int m, int slice) {
+  sparse_update(dec, S, proc, curr, __ldg(level), u, v, Es, touched,
+                front_in, in, front_out, work_e, work_j, out, m, slice);
 }
 
 // out: as for the sparse kernel, zeroed before the launch.
@@ -384,6 +447,134 @@ dense_update_kernel(int* __restrict__ dec, int* __restrict__ S,
   __syncthreads();
   if (threadIdx.x == 0 && block_done != 0u) {
     atomicAdd(out + 2, static_cast<int>(block_done));
+  }
+}
+
+// A level's start in the fused loop: min over the m + 1 slots of S (a
+// processed slot counts as kSentinelS) into *lmin, and the processed slots
+// into *done, one atomic of each per block.  All threads of the grid call
+// it.
+__device__ __forceinline__ void level_min(const int* S, const uint8_t* proc,
+                                          int* lmin, int* done, int m) {
+  __shared__ int block_min;
+  __shared__ unsigned block_done;
+  if (threadIdx.x == 0) {
+    block_min = INT_MAX;
+    block_done = 0u;
+  }
+  __syncthreads();
+  const long long slots = static_cast<long long>(m) + 1;
+  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
+  int low = INT_MAX;
+  unsigned n = 0;
+  for (long long i = static_cast<long long>(blockIdx.x) * blockDim.x +
+                     threadIdx.x;
+       i < slots; i += stride) {
+    const bool p = proc[i] != 0;
+    low = min(low, p ? kSentinelS : S[i]);
+    n += p ? 1u : 0u;
+  }
+  low = __reduce_min_sync(wedge::kFullMask, low);
+  n = __reduce_add_sync(wedge::kFullMask, n);
+  if ((threadIdx.x & 31) == 0) {
+    atomicMin(&block_min, low);
+    if (n != 0u) atomicAdd(&block_done, n);
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    atomicMin(lmin, block_min);
+    if (block_done != 0u) atomicAdd(done, static_cast<int>(block_done));
+  }
+}
+
+// ctl: int32 [lmin[2], done[2], levels, sublevels, n_done, status]; the
+// level words alternate by level, the last four are the segment's result.
+constexpr int kLevelMin = 0;
+constexpr int kLevelDone = 2;
+constexpr int kResult = 4;
+// status: the segment passed m sub-levels (each retires at least one edge)
+constexpr int kOverrun = 1;
+
+// One peel segment (see the top of this file).  counts: int32 (2, 4), the
+// rows of the two frontier lists front (2, m + 1); the other operands as
+// for the standalone kernels.  Launched cooperatively.
+__global__ void __launch_bounds__(kThreads)
+peel_loop_kernel(int* dec, int* S, uint8_t* proc, uint8_t* curr,
+                 const int* __restrict__ u, const int* __restrict__ v,
+                 const int* __restrict__ Es, const int* __restrict__ N,
+                 const int* __restrict__ Eid,
+                 const uint8_t* __restrict__ pin, int* touched, int* front,
+                 int* work_e, int* work_j, int* counts, int* ctl, int m,
+                 int slice, int stop_live) {
+  cg::grid_group grid = cg::this_grid();
+  const bool lead = blockIdx.x == 0 && threadIdx.x == 0;
+  const long long slots = static_cast<long long>(m) + 1;
+  if (lead) {
+    ctl[kLevelMin] = INT_MAX;
+    ctl[kLevelDone] = 0;
+  }
+  grid.sync();
+  int levels = 0;
+  int subs = 0;
+  int n_done = 0;
+  int status = 0;
+  int p = 0;  // the row of counts and front that holds the frontier
+  for (;;) {
+    // level start, 1: the level value and the processed count; the row the
+    // dense walk writes is zeroed (the last sub-level read it)
+    const int w = levels & 1;
+    const int q = 1 - p;
+    if (lead) {
+      for (int k = 0; k < 4; ++k) counts[4 * q + k] = 0;
+    }
+    level_min(S, proc, ctl + kLevelMin + w, ctl + kLevelDone + w, m);
+    grid.sync();
+    const int l = ctl[kLevelMin + w];
+    n_done = ctl[kLevelDone + w];
+    if (slots - n_done <= stop_live) break;
+    // level start, 2: the dense walk forms the level's first frontier; the
+    // other level's words are reset for the next level
+    if (lead) {
+      ctl[kLevelMin + 1 - w] = INT_MAX;
+      ctl[kLevelDone + 1 - w] = 0;
+      counts[4 * q + 2] = n_done;
+    }
+    dense_walk(dec, S, proc, curr, l, u, v, Es, front + q * slots, work_e,
+               work_j, counts + 4 * q, m, slice);
+    grid.sync();
+    p = q;
+    ++levels;
+    for (;;) {
+      int* in = counts + 4 * p;
+      int* out = counts + 4 * (1 - p);
+      if (lead) {
+        for (int k = 0; k < 4; ++k) out[k] = 0;
+      }
+      fold(in[0], work_e, work_j, in + 3, l, u, v, Es, N, Eid, S, proc, curr,
+           pin, dec, touched, slice);
+      grid.sync();
+      sparse_update(dec, S, proc, curr, l, u, v, Es, touched,
+                    front + p * slots, in, front + (1 - p) * slots, work_e,
+                    work_j, out, m, slice);
+      grid.sync();
+      p = 1 - p;
+      ++subs;
+      if (subs > m) {
+        status = kOverrun;
+        break;
+      }
+      if (counts[4 * p + 1] == 0) break;
+    }
+    if (status != 0) {
+      n_done = counts[4 * p + 2];
+      break;
+    }
+  }
+  if (lead) {
+    ctl[kResult] = levels;
+    ctl[kResult + 1] = subs;
+    ctl[kResult + 2] = n_done;
+    ctl[kResult + 3] = status;
   }
 }
 
@@ -437,6 +628,44 @@ extern "C" int dense_update_launch(
   dense_update_kernel<<<blocks, kThreads, 0, s>>>(dec, S, proc, curr, level,
                                                   u, v, Es, front, work_e,
                                                   work_j, out, m, slice);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// One launch of the fused loop on `stream`: blocks = min(resident blocks,
+// ceil((m + 1) / kThreads)), launched cooperatively (a refused launch
+// returns its error: too many blocks, no cooperative launch).  The result
+// is ctl[4:8] = [levels, sublevels, n_done, status], read after the launch.
+extern "C" int peel_loop_launch(
+    int* dec, int* S, uint8_t* proc, uint8_t* curr, const int* u,
+    const int* v, const int* Es, const int* N, const int* Eid,
+    const uint8_t* pin, int* touched, int* front, int* work_e, int* work_j,
+    int* counts, int* ctl, int m, int slice, int stop_live, void* stream) {
+  if (m < 0 || slice <= 0 || stop_live < 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const long long need = (static_cast<long long>(m) + kThreads) / kThreads;
+  static wedge::GridCache grid;
+  const long long cap = wedge::resident_grid(grid, peel_loop_kernel,
+                                             kThreads, 0);
+  const int blocks = static_cast<int>(need < cap ? need : cap);
+  void* args[] = {&dec, &S, &proc, &curr, &u, &v, &Es, &N, &Eid, &pin,
+                  &touched, &front, &work_e, &work_j, &counts, &ctl, &m,
+                  &slice, &stop_live};
+  const cudaError_t err = cudaLaunchCooperativeKernel(
+      reinterpret_cast<const void*>(peel_loop_kernel), dim3(blocks),
+      dim3(kThreads), args, 0, static_cast<cudaStream_t>(stream));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The resident grid of the fused loop and of K2 (blocks per SM times SMs)
+// on the current device, for chip_smoke.py's register check.
+extern "C" int peel_loop_grid(int* loop_blocks, int* fold_blocks) {
+  static wedge::GridCache loop_grid;
+  static wedge::GridCache fold_grid;
+  *loop_blocks = wedge::resident_grid(loop_grid, peel_loop_kernel, kThreads,
+                                      0);
+  *fold_blocks = wedge::resident_grid(fold_grid, peel_kernel, kThreads, 0);
   return static_cast<int>(cudaGetLastError());
 }
 

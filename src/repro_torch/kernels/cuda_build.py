@@ -46,6 +46,8 @@ _SIGNATURES = {
         "peel_decrement_fold_launch": ([_VOID] * 15 + [_INT, _VOID], _INT),
         "sparse_update_launch": ([_VOID] * 15 + [_INT, _INT, _VOID], _INT),
         "dense_update_launch": ([_VOID] * 12 + [_INT, _INT, _VOID], _INT),
+        "peel_loop_launch": ([_VOID] * 16 + [_INT, _INT, _INT, _VOID], _INT),
+        "peel_loop_grid": ([_VOID, _VOID], _INT),
         "peel_error_string": ([_INT], ctypes.c_char_p),
     },
     "intersect": {

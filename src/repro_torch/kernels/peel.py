@@ -31,6 +31,15 @@ first frontier (and takes any state the sparse update takes).  The frontier
 id list is read while the next one is written, so the caller double-buffers
 it and ``counts``: ``buffers`` allocates them.
 
+``peel_loop`` runs whole levels of that loop as one launch: the level
+start (``l = min(live S)``, then the dense walk), the folds and the sparse
+updates, until the segment ends at a level boundary, with one host read of
+``[levels, sublevels, n_done, status]`` at the end.  Its plain version is
+``host_loop`` on CPU tensors: the loop driven from the host, one step
+wrapper at a time, reading ``[#frontier, #processed]`` once a sub-level.
+On CUDA tensors ``host_loop`` drives the three standalone kernels (the
+parity oracle of the fused launch).
+
 Every entry point launches its CUDA kernel (``csrc/peel.cu``) on CUDA
 tensors, with the level ``l`` and the counts read on the device, so none
 needs a host sync; on CPU tensors — and only there — it runs its plain
@@ -42,6 +51,8 @@ no schedule edges.
 
 from __future__ import annotations
 
+import ctypes
+import time
 from typing import NamedTuple
 
 import torch
@@ -49,14 +60,19 @@ import torch
 from repro_torch.kernels import cuda_build, wedge_common
 
 #: launches of the CUDA kernels / calls of their plain versions: the fold
-#: (K2), the sparse update after each fold and the dense update of a
-#: level's start
+#: (K2), the sparse update after each fold, the dense update of a level's
+#: start, and the fused loop (one per peel segment)
 COUNTS = cuda_build.LaunchCounts()
 UPDATE_COUNTS = cuda_build.LaunchCounts()
 DENSE_COUNTS = cuda_build.LaunchCounts()
+LOOP_COUNTS = cuda_build.LaunchCounts()
 
 #: candidates of one work item (one warp of K2 takes one item; two per lane)
 WORK_SLICE = 64
+
+#: the support a processed slot counts as in a level's minimum
+#: (``kSentinelS`` in csrc/peel.cu)
+SENTINEL_S = 1 << 30
 
 
 class Buffers(NamedTuple):
@@ -68,18 +84,32 @@ class Buffers(NamedTuple):
     work_e: torch.Tensor   # (work_cap,) int32
     work_j: torch.Tensor   # (work_cap,) int32
     counts: torch.Tensor   # (2, 4) int32, one row per frontier list
+    ctl: torch.Tensor      # (8,) int32, the fused loop's level words and
+    #                        its result [levels, sublevels, n_done, status]
 
 
 def buffers(m: int, work_cap: int, device) -> Buffers:
-    """Allocate the kernel path's buffers (``dec`` and ``counts`` zeroed)."""
+    """Allocate the kernel path's buffers (``dec``, ``counts`` and ``ctl``
+    zeroed)."""
     def empty(*shape):
         return torch.empty(shape, dtype=torch.int32, device=device)
 
-    return Buffers(dec=torch.zeros(m + 1, dtype=torch.int32, device=device),
-                   touched=empty(m), front=empty(2, m + 1),
+    # counts, ctl and dec in one zeroed allocation (one fill, not three),
+    # counts first: the update kernels add to each row's first two words
+    # with one 64-bit atomic, so a row must start 8-byte aligned
+    zero = torch.zeros(8 + 8 + m + 1, dtype=torch.int32, device=device)
+    return Buffers(dec=zero[16:], touched=empty(m), front=empty(2, m + 1),
                    work_e=empty(work_cap), work_j=empty(work_cap),
-                   counts=torch.zeros((2, 4), dtype=torch.int32,
-                                      device=device))
+                   counts=zero[:8].view(2, 4), ctl=zero[8:16])
+
+
+class LoopResult(NamedTuple):
+    """What one peel segment (``peel_loop``, ``host_loop``) reports."""
+
+    levels: int
+    sublevels: int
+    host_reads: int   # blocking reads of the device's counts
+    wait_ns: int      # host ns blocked in those reads
 
 
 def work_capacity(m: int, table_size: int) -> int:
@@ -137,8 +167,7 @@ def _launch(name: str, fn: str, *args) -> None:
     cuda_build.check_launch(lib, name, code)
 
 
-def _check_edges(dev, l, u, v, Es, m: int) -> None:
-    cuda_build.check_int32("l", l, dev, (1,))
+def _check_edges(dev, u, v, Es, m: int) -> None:
     cuda_build.check_int32("u", u, dev)
     cuda_build.check_int32("v", v, dev, tuple(u.shape))
     if u.shape[0] < m:
@@ -180,7 +209,8 @@ def peel_decrement_fold(work_e, work_j, counts, l, u, v, Es, N, Eid, S_ext,
         raise ValueError(f"peel_decrement_fold: unsupported device {dev}")
     _check_work(dev, work_e, work_j)
     cuda_build.check_int32("counts", counts, dev, (4,))
-    _check_edges(dev, l, u, v, Es, 0)
+    cuda_build.check_int32("l", l, dev, (1,))
+    _check_edges(dev, u, v, Es, 0)
     two_m = N.shape[0]
     cuda_build.check_int32("N", N, dev, (two_m,))
     cuda_build.check_int32("Eid", Eid, dev, (two_m,))
@@ -311,7 +341,8 @@ def dense_update(dec, S_ext, processed, inCurr, l, u, v, Es, front, work_e,
     if dev.type != "cuda":
         raise ValueError(f"dense_update: unsupported device {dev}")
     _check_state(dev, dec, S_ext, processed, inCurr, m)
-    _check_edges(dev, l, u, v, Es, m)
+    cuda_build.check_int32("l", l, dev, (1,))
+    _check_edges(dev, u, v, Es, m)
     cuda_build.check_int32("front", front, dev, (m + 1,))
     _check_work(dev, work_e, work_j)
     cuda_build.check_int32("counts", counts, dev, (4,))
@@ -359,7 +390,8 @@ def sublevel_update(dec, S_ext, processed, inCurr, l, u, v, Es, touched,
     if dev.type != "cuda":
         raise ValueError(f"sublevel_update: unsupported device {dev}")
     _check_state(dev, dec, S_ext, processed, inCurr, m)
-    _check_edges(dev, l, u, v, Es, m)
+    cuda_build.check_int32("l", l, dev, (1,))
+    _check_edges(dev, u, v, Es, m)
     cuda_build.check_int32("touched", touched, dev, (m,))
     for name, t in (("front_in", front_in), ("front_out", front_out)):
         cuda_build.check_int32(name, t, dev, (m + 1,))
@@ -392,3 +424,123 @@ def sublevel_update_ref(dec, S_ext, processed, inCurr, l, u, v, Es, touched,
                    counts_out)
     counts_out[2] = n_done + n_front
     counts_out[3] = 0
+
+
+def peel_loop(S_ext, processed, u, v, Es, N, Eid, pinned=None, *, m: int,
+              work_cap: int, stop_live: int = 0) -> LoopResult:
+    """Peel whole levels over the (m+1,) state in place, in one launch.
+
+    Runs levels while more than ``stop_live`` of the ``m + 1`` slots are
+    unprocessed (the test is made at each level's start): a level starts
+    with ``l = min(live S)`` and the dense walk, then folds and sparse
+    updates until the frontier is empty.  ``S_ext`` (m+1,) int32 and
+    ``processed`` (m+1,) bool are updated in place; ``u``/``v``/``Es`` are
+    the edge endpoints and CSR offsets, ``N``/``Eid`` the adjacency,
+    ``pinned`` the schedule edges or None, ``work_cap`` the work list's
+    size (``work_capacity``).  On CUDA tensors: one cooperative launch of
+    ``peel_loop_kernel`` and one read of its result; a launch the card
+    refuses, or a segment past ``m`` sub-levels, raises ``KernelError``.
+    """
+    dev = S_ext.device
+    if dev.type == "cpu":
+        return peel_loop_ref(S_ext, processed, u, v, Es, N, Eid, pinned, m=m,
+                             work_cap=work_cap, stop_live=stop_live)
+    if dev.type != "cuda":
+        raise ValueError(f"peel_loop: unsupported device {dev}")
+    if stop_live < 0:
+        raise ValueError(f"stop_live must be >= 0, got {stop_live}")
+    cuda_build.check_int32("S_ext", S_ext, dev, (m + 1,))
+    cuda_build.check_mask("processed", processed, dev, (m + 1,))
+    _check_edges(dev, u, v, Es, m)
+    two_m = N.shape[0]
+    cuda_build.check_int32("N", N, dev, (two_m,))
+    cuda_build.check_int32("Eid", Eid, dev, (two_m,))
+    if pinned is not None:
+        cuda_build.check_mask("pinned", pinned, dev, (m + 1,))
+    buf = buffers(m, work_cap, dev)
+    inCurr = torch.zeros(m + 1, dtype=torch.bool, device=dev)
+    _launch("peel", "peel_loop_launch", buf.dec, S_ext, processed, inCurr, u,
+            v, Es, N, Eid, pinned, buf.touched, buf.front, buf.work_e,
+            buf.work_j, buf.counts, buf.ctl, m, WORK_SLICE, stop_live)
+    LOOP_COUNTS.launched()
+    t0 = time.perf_counter_ns()
+    levels, subs, _, status = buf.ctl[4:].tolist()
+    wait = time.perf_counter_ns() - t0
+    if status != 0:
+        _overrun(subs, m)
+    return LoopResult(levels, subs, 1, wait)
+
+
+def _overrun(subs: int, m: int):
+    raise cuda_build.KernelError(
+        f"peel loop stopped after {subs} sub-levels of an edge space of "
+        f"{m}: each sub-level retires an edge, so the state is not one the "
+        f"peel reaches")
+
+
+def host_loop(S_ext, processed, u, v, Es, N, Eid, pinned=None, *, m: int,
+              work_cap: int, stop_live: int = 0) -> LoopResult:
+    """``peel_loop`` driven from the host, one step wrapper at a time.
+
+    A level starts with ``l = min(live S)`` on the device and
+    ``dense_update`` over a zero ``dec`` and an empty frontier, which forms
+    the level's first frontier (never empty: some live edge holds the
+    minimum) and counts the processed slots.  A sub-level is
+    ``peel_decrement_fold`` over the frontier's work list, then
+    ``sublevel_update``; the frontier id lists and their counts alternate
+    between two buffers (``p``).  The host then reads ``[#frontier,
+    #processed]`` once.  On CPU tensors every step runs its plain version
+    (this is ``peel_loop_ref``); on CUDA tensors it launches the three
+    standalone kernels.  Past ``m`` sub-levels it raises ``KernelError``, as
+    ``peel_loop`` does.
+    """
+    dev = S_ext.device
+    inCurr = torch.zeros(m + 1, dtype=torch.bool, device=dev)
+    buf = buffers(m, work_cap, dev)
+    work = (buf.work_e, buf.work_j)
+    front, counts = buf.front.unbind(), buf.counts.unbind()
+    todo = (m + 1) - int(processed.sum())
+    levels = subs = p = wait = 0
+    while todo > stop_live:
+        l = torch.where(processed, SENTINEL_S, S_ext).min().reshape(1)
+        dense_update(buf.dec, S_ext, processed, inCurr, l, u, v, Es, front[p],
+                     *work, counts[p], m=m)
+        levels += 1
+        while True:
+            peel_decrement_fold(*work, counts[p], l, u, v, Es, N, Eid, S_ext,
+                                processed, inCurr, pinned, m=m, dec=buf.dec,
+                                touched=buf.touched)
+            sublevel_update(buf.dec, S_ext, processed, inCurr, l, u, v, Es,
+                            buf.touched, front[p], counts[p], front[1 - p],
+                            *work, counts[1 - p], m=m)
+            p = 1 - p
+            subs += 1
+            if subs > m:
+                _overrun(subs, m)
+            t0 = time.perf_counter_ns()
+            n_front, n_done = counts[p][1:3].tolist()
+            wait += time.perf_counter_ns() - t0
+            if not n_front:
+                break
+        todo = (m + 1) - n_done
+    return LoopResult(levels, subs, subs, wait)
+
+
+def peel_loop_ref(S_ext, processed, u, v, Es, N, Eid, pinned=None, *,
+                  m: int, work_cap: int, stop_live: int = 0) -> LoopResult:
+    """Plain PyTorch version of ``peel_loop`` (same contract):
+    ``host_loop``, whose steps run their plain versions."""
+    LOOP_COUNTS.ran_plain()
+    return host_loop(S_ext, processed, u, v, Es, N, Eid, pinned, m=m,
+                     work_cap=work_cap, stop_live=stop_live)
+
+
+def resident_grids() -> dict:
+    """``{"loop": n, "fold": n}``: the blocks of the fused loop and of K2
+    that the current card holds at once (their registers and shared memory
+    set them)."""
+    lib = cuda_build.library("peel")
+    loop, fold = ctypes.c_int(0), ctypes.c_int(0)
+    code = lib.peel_loop_grid(ctypes.addressof(loop), ctypes.addressof(fold))
+    cuda_build.check_launch(lib, "peel", code)
+    return {"loop": loop.value, "fold": fold.value}

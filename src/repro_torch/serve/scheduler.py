@@ -15,7 +15,8 @@ compatible work coalesces per tick —
 
   * **decompositions** (``submit_async``) of one pow2 size class merge into
     one disjoint-union ``pkt`` dispatch (the engine's bucket machinery:
-    one K1 launch and one K2 launch per sub-level for the bucket),
+    one K1 launch and one peel-loop launch per peel segment for the
+    bucket),
     released either when the bucket reaches ``max_batch`` or when its
     oldest request has waited ``max_delay_ms`` — the classic
     latency-vs-batch-fullness policy;

@@ -18,8 +18,8 @@ engine amortizes it:
     decomposed as **one disjoint-union graph** (``CSROperand``): the
     bucket's graphs side by side, vertex ids offset per graph.  Trussness
     and support are per-component properties, so one ``pkt`` over the union
-    gives every graph its own result — one support launch and one peel
-    launch per sub-level for the whole bucket.  The per-graph ``levels`` /
+    gives every graph its own result — one support launch and one
+    peel-loop launch per peel segment for the whole bucket.  The per-graph ``levels`` /
     sub-level counters, which ``flush`` never returned, do not exist here.
   * **Order-aligned results** — ``submit`` returns a ticket; results are
     delivered aligned to each submission's own edge-row order regardless of

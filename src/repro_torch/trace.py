@@ -32,8 +32,10 @@ The spans the port places, and what reads them (PERF.md, section 3):
 ``engine.union``, ``engine.align``; ``csr.canonical``, ``csr.order``,
 ``csr.relabel``, ``csr.build`` (``m``); ``pkt.support``, ``pkt.peel_csr``
 (``pkt.tables`` for the torch executors), ``pkt.loop`` (``levels``,
-``sublevels``, ``wait_ns``: host ns blocked in the per-sub-level read of
-the kernel executor), ``pkt.readback``, ``pkt.compact``.
+``sublevels``; for the kernel executor ``host_reads``, its blocking reads
+of the device's counts — one a segment on the card, one a sub-level on
+the CPU — and ``wait_ns``, host ns blocked in them), ``pkt.readback``,
+``pkt.compact``.
 """
 
 from __future__ import annotations

@@ -1,0 +1,221 @@
+"""The fused peel loop on the card: one launch of ``peel_loop_kernel`` per
+peel segment against the host loop over the three standalone kernels.
+
+Every test here needs an NVIDIA card (marker ``card``) and skips without
+one; the file imports nothing of the JAX package, so it runs on a machine
+that has only the port.  On the card::
+
+    python -m pytest -q -m card tests/test_torch_card.py
+
+Both loops start from the same state (initial support on the card, slot
+``m`` processed) and must agree bitwise on ``S_ext``, ``processed``,
+``levels`` and ``sublevels``; the decompositions must equal the port's
+plain versions on the CPU and the host oracle.
+"""
+
+from __future__ import annotations
+
+import importlib
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.core import support as support_mod
+from repro_torch.core.ref import truss_numpy
+from repro_torch.graphs.csr import build_csr
+from repro_torch.graphs.gen import barabasi_albert_edges, rmat_edges
+from repro_torch.kernels import count_launches, cuda_build
+from repro_torch.kernels import peel as kpeel
+from repro_torch.serve.truss_engine import TrussEngine
+
+# ``repro_torch.core`` re-exports the ``pkt`` function, which shadows the
+# module
+pkt_mod = importlib.import_module("repro_torch.core.pkt")
+
+pytestmark = pytest.mark.card
+
+
+@pytest.fixture
+def card():
+    """The card, or a skip where there is none."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card (CUDA)")
+    return torch.device("cuda")
+
+
+def _er(n, p, seed):
+    rng = np.random.default_rng(seed)
+    src, dst = np.nonzero(np.triu(rng.random((n, n)) < p, 1))
+    return np.stack([src, dst], axis=1).astype(np.int64)
+
+
+def ego_net(n, papers, seed):
+    """An ego (vertex 0) and ``n - 1`` co-authors as a union of paper
+    cliques, the ego on every paper: deep, near-clique, like COLLAB's."""
+    rng = np.random.default_rng(seed)
+    rows = []
+    for _ in range(papers):
+        k = int(rng.integers(2, min(n, 12)))
+        members = np.concatenate(
+            [[0], rng.choice(np.arange(1, n), size=k - 1, replace=False)])
+        a, b = np.triu_indices(k, 1)
+        rows.append(np.stack([members[a], members[b]], axis=1))
+    E = np.unique(np.sort(np.concatenate(rows), axis=1), axis=0)
+    return E.astype(np.int64)
+
+
+GRAPHS = {
+    "er": lambda: _er(60, 0.3, 7),
+    "rmat10": lambda: rmat_edges(10, edge_factor=16, seed=1),
+    "rmat14": lambda: rmat_edges(14, edge_factor=16, seed=2),
+    "ba": lambda: barabasi_albert_edges(2000, 6, seed=3),
+    "ego": lambda: ego_net(120, 60, seed=4),
+}
+
+
+def _state(g, dev):
+    """The peel's start on ``dev``: (S_ext, processed, csr, N, Eid)."""
+    S0 = support_mod._support_device(g, mode="kernel", chunk=None,
+                                     device=dev).to(torch.int32)
+    S_ext = torch.cat([S0, torch.full((1,), kpeel.SENTINEL_S,
+                                      dtype=torch.int32, device=dev)])
+    processed = torch.zeros(g.m + 1, dtype=torch.bool, device=dev)
+    processed[g.m] = True
+    arrays = g.device_arrays(dev)
+    return (S_ext, processed, pkt_mod.prepare_peel_csr(g, device=dev),
+            arrays["N"], arrays["Eid"])
+
+
+def _run(loop, st, m, pinned=None, stop_live=0):
+    S_ext, processed, csr, N, Eid = st
+    S, P = S_ext.clone(), processed.clone()
+    res = loop(S, P, csr.u, csr.v, csr.Es, N, Eid, pinned, m=m,
+               work_cap=csr.work_cap, stop_live=stop_live)
+    return S, P, res
+
+
+def _assert_same(a, b):
+    S1, P1, r1 = a
+    S2, P2, r2 = b
+    assert torch.equal(S1, S2)
+    assert torch.equal(P1, P2)
+    assert (r1.levels, r1.sublevels) == (r2.levels, r2.sublevels)
+
+
+@pytest.mark.parametrize("pinned", [False, True])
+@pytest.mark.parametrize("name", sorted(GRAPHS))
+def test_fused_loop_equals_host_loop(card, name, pinned):
+    g = build_csr(GRAPHS[name]())
+    m = g.m
+    st = _state(g, card)
+    pin = None
+    if pinned:
+        rng = np.random.default_rng(len(name))
+        pin = torch.tensor(np.append(rng.random(m) < 0.25, False),
+                           device=card)
+    with count_launches() as counted:
+        fused = _run(kpeel.peel_loop, st, m, pin)
+    host = _run(kpeel.host_loop, st, m, pin)
+    _assert_same(fused, host)
+    assert fused[2].host_reads == 1 and fused[2].wait_ns >= 0
+    assert host[2].host_reads == host[2].sublevels
+    assert counted["loop"] == 1
+    assert counted["peel"] == counted["update"] == counted["plain"] == 0
+    # the plain version on the CPU agrees too
+    S_ext, processed, csr, N, Eid = st
+    cpu = (S_ext.cpu(), processed.cpu(),
+           pkt_mod.PeelCSR(csr.u.cpu(), csr.v.cpu(), csr.Es.cpu(),
+                           csr.work_cap), N.cpu(), Eid.cpu())
+    plain = _run(kpeel.peel_loop, cpu, m, None if pin is None else pin.cpu())
+    _assert_same((fused[0].cpu(), fused[1].cpu(), fused[2]), plain)
+
+
+@pytest.mark.parametrize("name", ["rmat14", "ego", "ba"])
+def test_segments_end_at_the_host_loops_level_boundary(card, name):
+    """Several ``stop_live`` values: each segment stops where the host loop
+    does, and a second segment from there finishes the peel alike."""
+    g = build_csr(GRAPHS[name]())
+    m = g.m
+    st = _state(g, card)
+    for frac in (0.9, 0.5, 0.25, 0.05):
+        stop = int(frac * m)
+        fused = _run(kpeel.peel_loop, st, m, stop_live=stop)
+        host = _run(kpeel.host_loop, st, m, stop_live=stop)
+        _assert_same(fused, host)
+        live = (m + 1) - int(fused[1].sum())
+        assert live <= stop or fused[2].levels == 0
+        rest = (fused[0], fused[1]) + st[2:]
+        _assert_same(_run(kpeel.peel_loop, rest, m),
+                     _run(kpeel.host_loop, rest, m))
+
+
+def test_empty_edge_space(card):
+    S = torch.full((1,), kpeel.SENTINEL_S, dtype=torch.int32, device=card)
+    P = torch.ones(1, dtype=torch.bool, device=card)
+    z = torch.zeros(1, dtype=torch.int32, device=card)
+    e = torch.zeros(0, dtype=torch.int32, device=card)
+    res = kpeel.peel_loop(S, P, e, e, z, e, e, m=0, work_cap=1)
+    assert (res.levels, res.sublevels, res.host_reads) == (0, 0, 1)
+    assert pkt_mod.pkt(build_csr(np.zeros((0, 2), np.int64)),
+                       device=card).sublevels == 0
+
+
+def test_a_loop_past_its_cap_raises(card):
+    """Slot ``m`` left live never joins a frontier: each level's sub-level
+    retires nothing, and the launch stops at its cap instead of hanging."""
+    g = build_csr(GRAPHS["er"]())
+    S_ext, processed, csr, N, Eid = _state(g, card)
+    processed[g.m] = False
+    with pytest.raises(cuda_build.KernelError, match="sub-levels"):
+        kpeel.peel_loop(S_ext, processed, csr.u, csr.v, csr.Es, N, Eid,
+                        m=g.m, work_cap=csr.work_cap)
+
+
+@pytest.mark.parametrize("compaction", [None, 0.5])
+def test_pkt_launches_one_loop_per_segment(card, compaction):
+    g = build_csr(GRAPHS["rmat14"]())
+    kw = (dict(compact_frac=None) if compaction is None
+          else dict(compact_frac=compaction, compact_min=0))
+    with count_launches() as counted:
+        res = pkt_mod.pkt(g, device=card, **kw)
+    want = pkt_mod.pkt(g, device="cpu", **kw)
+    assert np.array_equal(res.trussness, want.trussness)
+    assert (res.levels, res.sublevels, res.compactions) == \
+        (want.levels, want.sublevels, want.compactions)
+    assert (compaction is not None) == (res.compactions > 0)
+    assert counted == {"support": 1, "peel": 0, "update": 0,
+                       "loop": res.compactions + 1, "intersect": 0,
+                       "plain": 0}
+
+
+def test_region_peel_with_pinned_edges(card):
+    g = build_csr(GRAPHS["rmat10"]())
+    S0 = pkt_mod.pkt(g, device=card).support
+    rng = np.random.default_rng(8)
+    live = np.sort(rng.choice(g.m, size=2 * g.m // 3, replace=False))
+    pinned = rng.random(live.shape[0]) < 0.25
+    for kw in (dict(compact_frac=None),
+               dict(compact_frac=0.99, compact_min=0)):
+        got = pkt_mod.peel_live_subset(g.El, live, S0[live], pinned,
+                                       device=card, **kw)
+        want = pkt_mod.peel_live_subset(g.El, live, S0[live], pinned,
+                                        device="cpu", **kw)
+        assert np.array_equal(got, want)
+
+
+def test_engine_batch_of_ego_nets(card):
+    """A batch of COLLAB-like ego nets through the engine on the card:
+    every result equals the plain engine on the CPU and the host oracle,
+    and no dispatch launched K2 or an update on its own."""
+    graphs = [ego_net(int(n), int(n) // 2, seed=100 + i) for i, n in
+              enumerate(np.random.default_rng(5).integers(20, 90, 48))]
+    eng = TrussEngine(max_pending=len(graphs) + 1, device=card)
+    got = eng.map(graphs)
+    want = TrussEngine(max_pending=len(graphs) + 1, device="cpu").map(graphs)
+    for E, a, b in zip(graphs, got, want):
+        assert np.array_equal(a, b)
+        assert np.array_equal(a, truss_numpy(E))
+    for counts in eng.stats["bucket_launches"].values():
+        assert counts["loop"] >= 1 and counts["support"] >= 1
+        assert counts["peel"] == counts["update"] == counts["plain"] == 0

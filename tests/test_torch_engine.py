@@ -96,17 +96,19 @@ def test_one_bucket_is_one_union_dispatch():
 
 
 def test_count_launches_reads_one_block():
-    """count_launches reports the block's K1/K2/update/K3 launches and
-    plain calls only: on the CPU, one support fold, one peel fold per
-    sub-level and one update per sub-level and per level start, all
-    plain."""
+    """count_launches reports the block's K1/K2/update/loop/K3 launches
+    and plain calls only: on the CPU, one support fold, one peel loop per
+    segment, one peel fold per sub-level and one update per sub-level and
+    per level start, all plain."""
     E = ring_of_cliques_edges(3, 5)
     truss_pkt(E, device="cpu")   # counted before the block: must not show
     with count_launches() as counted:
         assert counted == {}     # filled only when the block exits
         res = pkt(build_csr(E), device="cpu")
-    assert counted == {"support": 0, "peel": 0, "update": 0, "intersect": 0,
-                       "plain": 1 + 2 * res.sublevels + res.levels}
+    assert counted == {"support": 0, "peel": 0, "update": 0, "loop": 0,
+                       "intersect": 0,
+                       "plain": (1 + (res.compactions + 1)
+                                 + 2 * res.sublevels + res.levels)}
 
 
 def test_disjoint_union_equals_build_csr():

@@ -284,6 +284,64 @@ def test_plain_sublevel_update_matches_reference_formula(name, monkeypatch):
     assert checked >= 3
 
 
+@pytest.mark.parametrize("pinned", [False, True])
+@pytest.mark.parametrize("name", sorted(CASES))
+def test_plain_peel_loop_segments_match_reference(name, pinned):
+    """The fused loop's plain version (``peel_loop`` on CPU tensors) from
+    the reference's own states, with several ``stop_live`` values: each
+    segment ends where the reference's segment ends, with its state, levels
+    and sub-levels; one host read per sub-level."""
+    E, chunk = CASES[name]
+    g, tabs, chunk, n_chunks, iters, states = _reference_states(E, chunk)
+    m = g.m
+    t = torch.tensor
+    u, v, Es, N, Eid = (t(a) for a in (g.El[:, 0], g.El[:, 1], g.Es, g.N,
+                                       g.Eid))
+    scan = np.minimum(g.degrees[g.El[:, 0]], g.degrees[g.El[:, 1]])
+    cap = port_kernel.work_capacity(m, int(scan.sum()))
+    rng = np.random.default_rng(len(name) + 2)
+    segments = 0
+    for S_ext, proc in states[:2]:
+        pin = (np.append(~proc[:m] & (rng.random(m) < 0.3), False)
+               if pinned else None)
+        for frac in (0.6, 0.3, 0.0):
+            stop = int(frac * m)
+            want_S, want_P, want_lv, want_sb = ref_pkt._peel_segment_jit(
+                jnp.asarray(g.N), jnp.asarray(g.Eid), jnp.asarray(S_ext),
+                jnp.asarray(proc), jnp.int32(stop),
+                None if pin is None else jnp.asarray(pin), tabs, m=m,
+                chunk=chunk, n_chunks=n_chunks, iters=iters, mode="chunked",
+                interpret=True)
+            S, P = t(S_ext.copy()), t(proc.copy())
+            got = port_kernel.peel_loop(S, P, u, v, Es, N, Eid,
+                                        None if pin is None else t(pin),
+                                        m=m, work_cap=cap, stop_live=stop)
+            assert np.array_equal(S.numpy(), np.asarray(want_S))
+            assert np.array_equal(P.numpy(), np.asarray(want_P))
+            assert (got.levels, got.sublevels) == (int(want_lv),
+                                                   int(want_sb))
+            assert got.host_reads == got.sublevels and got.wait_ns >= 0
+            segments += got.levels > 0
+    assert segments >= 2
+
+
+def test_plain_peel_loop_stops_past_its_cap():
+    """A state the peel never reaches (slot ``m`` left live: no level's
+    frontier can take it) stops after ``m`` sub-levels with
+    ``KernelError``, as the kernel does, instead of looping forever."""
+    from repro_torch.kernels.cuda_build import KernelError
+
+    g = port_build(_er(12, 0.5, 3))
+    m = g.m
+    t = torch.tensor
+    S = t(np.append(np.zeros(m, np.int32), SENT))
+    P = torch.zeros(m + 1, dtype=torch.bool)
+    with pytest.raises(KernelError, match=f"after {m + 1} sub-levels"):
+        port_kernel.peel_loop(S, P, t(g.El[:, 0]), t(g.El[:, 1]), t(g.Es),
+                              t(g.N), t(g.Eid), m=m,
+                              work_cap=port_kernel.work_capacity(m, 2 * m))
+
+
 def _star(k):
     return np.stack([np.zeros(k, np.int64), np.arange(1, k + 1)], axis=1)
 

@@ -239,3 +239,43 @@ def test_table_ceiling_refuses_as_the_reference(mode, phase, monkeypatch):
     with pytest.raises(ValueError, match="int32"):
         port_pkt.pkt(g, mode=mode, support_mode=mode.replace(
             "chunked", "torch"), device="cpu")
+
+
+@pytest.mark.parametrize("compaction", sorted(COMPACTION))
+def test_plain_loop_spans_read_once_per_sublevel(compaction):
+    """On the CPU the kernel executor's loop runs from the host: each
+    ``pkt.loop`` span carries one blocking read per sub-level
+    (``host_reads == sublevels``) and the host's wait in them."""
+    from repro_torch import trace
+
+    trace.enable()
+    try:
+        res = port_pkt.pkt(port_build(GRAPHS["rmat"]), device="cpu",
+                           **COMPACTION[compaction])
+        loops = [sp for sp in trace.spans() if sp.name == "pkt.loop"]
+    finally:
+        trace.disable()
+        trace.clear()
+    assert len(loops) == res.compactions + 1
+    for sp in loops:
+        assert sp.attrs["host_reads"] == sp.attrs["sublevels"]
+        assert sp.attrs["wait_ns"] >= 0
+    assert sum(sp.attrs["host_reads"] for sp in loops) == res.sublevels
+
+
+@pytest.mark.parametrize("compaction", sorted(COMPACTION))
+def test_count_launches_counts_the_loop_once_per_segment(compaction):
+    """``count_launches`` has the fused loop's key; on the CPU its plain
+    version runs once per peel segment and the kernel never launches."""
+    from repro_torch.kernels import count_launches, peel
+
+    before = peel.LOOP_COUNTS.mine()
+    with count_launches() as counted:
+        res = port_pkt.pkt(port_build(GRAPHS["er"]), device="cpu",
+                           **COMPACTION[compaction])
+    after = peel.LOOP_COUNTS.mine()
+    assert counted["loop"] == 0
+    assert after["kernel"] == before["kernel"]
+    assert after["plain"] - before["plain"] == res.compactions + 1
+    assert counted["plain"] == (1 + (res.compactions + 1)
+                                + 2 * res.sublevels + res.levels)

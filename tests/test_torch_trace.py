@@ -184,10 +184,11 @@ def test_dispatch_spans_sum_their_pkt_calls(monkeypatch):
         unions = [sp for sp in spans
                   if sp.name == "engine.union" and under(sp, d)]
         # on the CPU every "kernel" call runs its plain version: K1 once a
-        # union, K2 and the update every sub-level, the dense update every
-        # level
+        # union, the peel loop once a segment, K2 and the update every
+        # sub-level, the dense update every level
         assert d.attrs["launches"]["plain"] == (
-            len(unions) + 2 * d.attrs["sublevels"] + d.attrs["levels"])
+            len(unions) + len(loops) + 2 * d.attrs["sublevels"]
+            + d.attrs["levels"])
 
 
 @pytest.mark.parametrize("how", ["enable", "profiler"])
@@ -229,10 +230,12 @@ def test_count_launches_sees_only_its_own_thread(main_works):
     assert not t.is_alive()
 
     def plain(r):
-        return 1 + 2 * r.sublevels + r.levels if r is not None else 0
+        if r is None:
+            return 0
+        return 1 + (r.compactions + 1) + 2 * r.sublevels + r.levels
 
-    assert mine == {"support": 0, "peel": 0, "update": 0, "intersect": 0,
-                    "plain": plain(res)}
+    assert mine == {"support": 0, "peel": 0, "update": 0, "loop": 0,
+                    "intersect": 0, "plain": plain(res)}
     assert seen["counts"]["plain"] == plain(seen["res"])
 
 
