@@ -71,13 +71,15 @@ PEEL_MODES = ("chunked", "dense", "kernel")
 
 class PeelCSR(NamedTuple):
     """What the kernel executor reads instead of a peel table: the edge
-    endpoints and CSR offsets (pow2-padded in compacted subproblems) and the
-    size of the frontier work list."""
+    endpoints and CSR offsets (pow2-padded in compacted subproblems), the
+    size of the frontier work list, and the rows the peel table would
+    hold."""
 
     u: torch.Tensor          # (m_out,) int32, padding slots 0
     v: torch.Tensor          # (m_out,) int32, padding slots 0
     Es: torch.Tensor         # (n_pad+1,) int32 CSR offsets
     work_cap: int            # work items the largest frontier can make
+    peel_rows: int = 0       # the peel table's rows (none is built)
 
 
 class PeelTables(NamedTuple):
@@ -245,19 +247,23 @@ def prepare_peel_csr(g: CSRGraph, *, m_out: int | None = None,
                      device="cuda") -> PeelCSR:
     """The kernel executor's operands for ``g`` — no table is built.
 
-    The graph is refused, as ``prepare_peel_device`` and the JAX package
-    refuse it, when its padded peel table would overflow the int32 layout:
-    both packages accept the same graphs.  ``m_out`` (default ``g.m``) sizes
-    the edge state space, as in ``prepare_peel_device``.
+    The table executors' int32 guard does not apply, so the port accepts
+    graphs that ``prepare_peel_device`` and the JAX package refuse: those
+    whose padded peel table would pass 2^31 - 1 rows.  The kernel path's
+    largest count is its work list, ``m`` plus the rows over ``WORK_SLICE``;
+    a graph is refused only when that passes the int32 layout.  ``m_out``
+    (default ``g.m``) sizes the edge state space, as in
+    ``prepare_peel_device``.
     """
     device = resolve_device(device)
     m_out = g.m if m_out is None else m_out
     size = support_mod.peel_table_size(g)
-    if size:
-        support_mod._check_table_size(wedge_common.next_pow2(size))
+    work_cap = peel_kernel.work_capacity(g.m, size)
+    if work_cap > np.iinfo(np.int32).max:
+        raise ValueError(f"peel work list of {work_cap} items exceeds the "
+                         f"int32 layout")
     u, v, Es = _peel_operands(g, m_out, device)
-    return PeelCSR(u=u, v=v, Es=Es,
-                   work_cap=peel_kernel.work_capacity(g.m, size))
+    return PeelCSR(u=u, v=v, Es=Es, work_cap=work_cap, peel_rows=size)
 
 
 def _active_chunk_mask(inCurr, tabs: PeelTables, m: int, n_chunks: int):
@@ -329,8 +335,9 @@ def _peel_loop(N, Eid, S_ext0, processed0, tabs, *, m: int,
     survivors into a compacted edge space and continue bitwise identically.
 
     ``span`` (the recorded ``pkt.loop`` span, or None) gets the kernel
-    executor's ``host_reads`` and ``wait_ns``: its blocking reads of the
-    device's counts and the host ns spent in them.
+    executor's ``host_reads`` and ``wait_ns``, its blocking reads of the
+    device's counts and the host ns spent in them, and ``blocks``, the fused
+    launch's grid (0 where the host drives the loop).
     """
     S_ext, processed = S_ext0.clone(), processed0.clone()
     if mode == "kernel":
@@ -342,7 +349,8 @@ def _peel_loop(N, Eid, S_ext0, processed0, tabs, *, m: int,
                                     work_cap=tabs.work_cap,
                                     stop_live=stop_live)
         if span is not None:
-            span.attrs.update(host_reads=res.host_reads, wait_ns=res.wait_ns)
+            span.attrs.update(host_reads=res.host_reads, wait_ns=res.wait_ns,
+                              blocks=res.blocks)
         return S_ext, processed, res.levels, res.sublevels
     todo = (m + 1) - int(processed.sum())
     levels = subs = 0
@@ -674,6 +682,7 @@ def _pkt(g: CSRGraph, *, chunk, mode, support_mode, table_mode,
                     m=g.m):
         if mode == "kernel":
             tabs = prepare_peel_csr(g, device=device)
+            trace.set(peel_rows=tabs.peel_rows, work_cap=tabs.work_cap)
             chunk_eff = n_chunks = None
         elif table_mode == "device" and peel_table is None:
             tabs, chunk_eff, n_chunks = prepare_peel_device(g, chunk,
@@ -751,23 +760,25 @@ def preprocess(edges, *, reorder: bool = True):
     Validates and canonicalizes the rows (endpoint order free, duplicates
     allowed), relabels vertices by increasing coreness when ``reorder`` (the
     paper's preprocessing), and builds the CSR graph.  ``row_keys`` locates
-    each input row's edge in ``g`` for ``align_to_input``.
+    each input row's edge in ``g`` for ``align_to_input``.  One
+    ``pkt.preprocess`` span, its helpers' ``csr.*`` spans inside.
     """
     from repro_torch.graphs.csr import (build_csr, canonical_edges_with_rows,
                                         degeneracy_order, relabel)
 
-    E, lo, hi, n = canonical_edges_with_rows(edges)
-    if E.size == 0:
-        return build_csr(E, 0), 0, np.zeros(0, np.int64)
-    if reorder:
-        perm = degeneracy_order(E, n)
-        r_edges = relabel(E, perm)
-        rl, rh = perm[lo], perm[hi]
-        row_keys = edge_keys(np.minimum(rl, rh), np.maximum(rl, rh), n)
-    else:
-        r_edges = E
-        row_keys = edge_keys(lo, hi, n)
-    return build_csr(r_edges, n), n, row_keys
+    with trace.span("pkt.preprocess"):
+        E, lo, hi, n = canonical_edges_with_rows(edges)
+        if E.size == 0:
+            return build_csr(E, 0), 0, np.zeros(0, np.int64)
+        if reorder:
+            perm = degeneracy_order(E, n)
+            r_edges = relabel(E, perm)
+            rl, rh = perm[lo], perm[hi]
+            row_keys = edge_keys(np.minimum(rl, rh), np.maximum(rl, rh), n)
+        else:
+            r_edges = E
+            row_keys = edge_keys(lo, hi, n)
+        return build_csr(r_edges, n), n, row_keys
 
 
 def truss_pkt(edges: np.ndarray, *, reorder: bool = True,
@@ -787,12 +798,17 @@ def truss_pkt(edges: np.ndarray, *, reorder: bool = True,
     bounds are rejected.  With ``reorder`` (the paper's preprocessing)
     vertices are relabeled by increasing coreness before decomposition.
     Runs on ``device`` ("cuda" by default; raises when no card is present).
+    The call is one ``pkt.one_shot`` span (``rows``, ``n``, ``m``) holding
+    ``pkt.preprocess``, ``pkt``'s spans and ``pkt.align``.
     """
     device = resolve_device(device)
-    g, n, row_keys = preprocess(edges, reorder=reorder)
-    if g.m == 0:
-        return np.zeros(0, np.int64)
-    res = pkt(g, chunk=chunk, mode=mode, support_mode=support_mode,
-              table_mode=table_mode, compact_frac=compact_frac,
-              compact_min=compact_min, device=device)
-    return align_to_input(res.trussness, g, None, n, keys=row_keys)
+    with trace.span("pkt.one_shot", rows=len(edges)):
+        g, n, row_keys = preprocess(edges, reorder=reorder)
+        trace.set(n=n, m=g.m)
+        if g.m == 0:
+            return np.zeros(0, np.int64)
+        res = pkt(g, chunk=chunk, mode=mode, support_mode=support_mode,
+                  table_mode=table_mode, compact_frac=compact_frac,
+                  compact_min=compact_min, device=device)
+        with trace.span("pkt.align"):
+            return align_to_input(res.trussness, g, None, n, keys=row_keys)

@@ -109,6 +109,12 @@
 //  * Each sub-level retires at least one edge, so a segment has at most m
 //    sub-levels; past that the kernel stops and reports it (status 1), and
 //    the wrapper raises.
+//  * No index here sums or doubles the peel table's rows, which no kernel
+//    holds: the largest is a work item, under m + rows / slice + 1 (2.1e7
+//    at Graph500 scale 18, whose rows reach 1.07e9), and
+//    core/pkt.py: prepare_peel_csr refuses a work list past 2^31 - 1.
+//    Adjacency slots stay under 2m; slot walks and the frontier rows'
+//    offsets take 64 bits.
 //
 // What bounds them: per sub-level, the adjacency lists the frontier's edges
 // scan and probe, Eid of the hit slots and the state of the touched edges
@@ -487,8 +493,9 @@ __device__ __forceinline__ void level_min(const int* S, const uint8_t* proc,
   }
 }
 
-// ctl: int32 [lmin[2], done[2], levels, sublevels, n_done, status]; the
-// level words alternate by level, the last four are the segment's result.
+// ctl: int32 [lmin[2], done[2], levels, sublevels, n_done, status, blocks];
+// the level words alternate by level, the last five are the segment's
+// result (blocks: the launch's grid).
 constexpr int kLevelMin = 0;
 constexpr int kLevelDone = 2;
 constexpr int kResult = 4;
@@ -575,6 +582,7 @@ peel_loop_kernel(int* dec, int* S, uint8_t* proc, uint8_t* curr,
     ctl[kResult + 1] = subs;
     ctl[kResult + 2] = n_done;
     ctl[kResult + 3] = status;
+    ctl[kResult + 4] = static_cast<int>(gridDim.x);
   }
 }
 
@@ -634,7 +642,8 @@ extern "C" int dense_update_launch(
 // One launch of the fused loop on `stream`: blocks = min(resident blocks,
 // ceil((m + 1) / kThreads)), launched cooperatively (a refused launch
 // returns its error: too many blocks, no cooperative launch).  The result
-// is ctl[4:8] = [levels, sublevels, n_done, status], read after the launch.
+// is ctl[4:9] = [levels, sublevels, n_done, status, blocks], read after the
+// launch.
 extern "C" int peel_loop_launch(
     int* dec, int* S, uint8_t* proc, uint8_t* curr, const int* u,
     const int* v, const int* Es, const int* N, const int* Eid,

@@ -84,8 +84,9 @@ class Buffers(NamedTuple):
     work_e: torch.Tensor   # (work_cap,) int32
     work_j: torch.Tensor   # (work_cap,) int32
     counts: torch.Tensor   # (2, 4) int32, one row per frontier list
-    ctl: torch.Tensor      # (8,) int32, the fused loop's level words and
-    #                        its result [levels, sublevels, n_done, status]
+    ctl: torch.Tensor      # (9,) int32, the fused loop's level words and
+    #                        its result [levels, sublevels, n_done, status,
+    #                        blocks]
 
 
 def buffers(m: int, work_cap: int, device) -> Buffers:
@@ -97,10 +98,10 @@ def buffers(m: int, work_cap: int, device) -> Buffers:
     # counts, ctl and dec in one zeroed allocation (one fill, not three),
     # counts first: the update kernels add to each row's first two words
     # with one 64-bit atomic, so a row must start 8-byte aligned
-    zero = torch.zeros(8 + 8 + m + 1, dtype=torch.int32, device=device)
-    return Buffers(dec=zero[16:], touched=empty(m), front=empty(2, m + 1),
+    zero = torch.zeros(8 + 9 + m + 1, dtype=torch.int32, device=device)
+    return Buffers(dec=zero[17:], touched=empty(m), front=empty(2, m + 1),
                    work_e=empty(work_cap), work_j=empty(work_cap),
-                   counts=zero[:8].view(2, 4), ctl=zero[8:16])
+                   counts=zero[:8].view(2, 4), ctl=zero[8:17])
 
 
 class LoopResult(NamedTuple):
@@ -110,6 +111,7 @@ class LoopResult(NamedTuple):
     sublevels: int
     host_reads: int   # blocking reads of the device's counts
     wait_ns: int      # host ns blocked in those reads
+    blocks: int       # the fused launch's grid; 0 where the host drives it
 
 
 def work_capacity(m: int, table_size: int) -> int:
@@ -464,11 +466,11 @@ def peel_loop(S_ext, processed, u, v, Es, N, Eid, pinned=None, *, m: int,
             buf.work_j, buf.counts, buf.ctl, m, WORK_SLICE, stop_live)
     LOOP_COUNTS.launched()
     t0 = time.perf_counter_ns()
-    levels, subs, _, status = buf.ctl[4:].tolist()
+    levels, subs, _, status, blocks = buf.ctl[4:].tolist()
     wait = time.perf_counter_ns() - t0
     if status != 0:
         _overrun(subs, m)
-    return LoopResult(levels, subs, 1, wait)
+    return LoopResult(levels, subs, 1, wait, blocks)
 
 
 def _overrun(subs: int, m: int):
@@ -523,7 +525,7 @@ def host_loop(S_ext, processed, u, v, Es, N, Eid, pinned=None, *, m: int,
             if not n_front:
                 break
         todo = (m + 1) - n_done
-    return LoopResult(levels, subs, subs, wait)
+    return LoopResult(levels, subs, subs, wait, 0)
 
 
 def peel_loop_ref(S_ext, processed, u, v, Es, N, Eid, pinned=None, *,

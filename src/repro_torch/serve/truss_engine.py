@@ -378,8 +378,11 @@ class TrussEngine:
             peel_size = support_mod.peel_table_size(g)
             key = self._size_class(g, sup_size, peel_size)
             if self.table_mode == "device":
-                support_mod._check_table_size(max(key.sup_pad,
-                                                  key.peel_pad))
+                # the kernel peel builds no table: only the support's pad
+                # meets the int32 guard there
+                support_mod._check_table_size(
+                    key.sup_pad if self.mode == "kernel"
+                    else max(key.sup_pad, key.peel_pad))
             self._pending.append(_Pending(
                 ticket=ticket, g=g, n=n, in_keys=in_keys, key=key,
                 sup_size=sup_size, peel_size=peel_size, E=E))
@@ -551,20 +554,23 @@ class TrussEngine:
         return None
 
     @staticmethod
-    def _unions(group: list[_Pending]) -> list[list[_Pending]]:
+    def _unions(group: list[_Pending], mode: str) -> list[list[_Pending]]:
         """Split a bucket into runs whose union tables fit the int32 layout.
 
         A union's tables hold the sum of its graphs' rows, padded to a power
         of two; each run stays within ``support._MAX_TABLE`` after padding.
+        The kernel peel (``mode="kernel"``) builds no peel table, so there
+        only the support rows count.
         """
         runs: list[list[_Pending]] = [[]]
         sup = peel = 0
         for p in group:
-            sup2, peel2 = sup + p.sup_size, peel + p.peel_size
+            p_peel = 0 if mode == "kernel" else p.peel_size
+            sup2, peel2 = sup + p.sup_size, peel + p_peel
             if runs[-1] and _next_pow2(max(sup2, peel2, 1)) > \
                     support_mod._MAX_TABLE:
                 runs.append([])
-                sup2, peel2 = p.sup_size, p.peel_size
+                sup2, peel2 = p.sup_size, p_peel
             runs[-1].append(p)
             sup, peel = sup2, peel2
         return runs
@@ -576,7 +582,7 @@ class TrussEngine:
         sub-levels go on the innermost open span (``engine.dispatch``)."""
         out = []
         levels = sublevels = 0
-        for run in self._unions(group):
+        for run in self._unions(group, mode):
             op = disjoint_union([p.g for p in run])
             res = pkt(op.g, chunk=self.chunk, mode=mode,
                       support_mode=support_mode, table_mode=self.table_mode,

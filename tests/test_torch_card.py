@@ -16,11 +16,16 @@ plain versions on the CPU and the host oracle.
 from __future__ import annotations
 
 import importlib
+import importlib.util
+import json
+import pathlib
+import sys
 
 import numpy as np
 import pytest
 import torch
 
+from repro_torch import trace
 from repro_torch.core import support as support_mod
 from repro_torch.core.ref import truss_numpy
 from repro_torch.graphs.csr import build_csr
@@ -219,3 +224,70 @@ def test_engine_batch_of_ego_nets(card):
     for counts in eng.stats["bucket_launches"].values():
         assert counts["loop"] >= 1 and counts["support"] >= 1
         assert counts["peel"] == counts["update"] == counts["plain"] == 0
+
+
+def test_loop_spans_carry_the_fused_grid(card):
+    """Each ``pkt.loop`` span's ``blocks`` is the fused launch's grid: the
+    resident blocks, or one block per 256 slots where that is fewer."""
+    g = build_csr(GRAPHS["rmat14"]())
+    trace.enable()
+    try:
+        pkt_mod.pkt(g, device=card, compact_frac=0.5, compact_min=0)
+        loops = [sp for sp in trace.spans() if sp.name == "pkt.loop"]
+    finally:
+        trace.disable()
+        trace.clear()
+    resident = kpeel.resident_grids()["loop"]
+    assert len(loops) > 1
+    for sp in loops:
+        wanted = (sp.attrs["m"] + 256) // 256       # ceil((m + 1) / 256)
+        assert sp.attrs["blocks"] == min(resident, wanted)
+
+
+def _plain_reference():
+    """The benchmark's plain reference (``bench/reference/truss.py``),
+    loaded by path: it imports nothing of the port."""
+    name = "bench_reference_truss"
+    if name not in sys.modules:
+        path = (pathlib.Path(__file__).resolve().parents[1] / "bench"
+                / "reference" / "truss.py")
+        spec = importlib.util.spec_from_file_location(name, path)
+        mod = importlib.util.module_from_spec(spec)
+        sys.modules[name] = mod
+        spec.loader.exec_module(mod)
+    return sys.modules[name]
+
+
+@pytest.mark.parametrize("seed,peel_rows", [(1001, 1_074_459_056),
+                                            (11, 1_074_027_026)])
+def test_scale18_graphs_past_the_peel_table_ceiling(card, seed, peel_rows):
+    """Graph500 scale-18 graphs whose peel table would pad past 2^31 - 1
+    rows, which the table executors and the JAX package refuse: the kernel
+    path decomposes them through ``truss_pkt`` and ``TrussEngine.submit``,
+    equal to the plain reference, the fused loop's grid at its cap."""
+    E = rmat_edges(18, edge_factor=16, seed=seed)
+    g, _, _ = pkt_mod.preprocess(E)
+    sup_rows = support_mod.support_table_size(g)
+    assert support_mod.peel_table_size(g) == peel_rows
+    assert 1 << (peel_rows - 1).bit_length() > support_mod._MAX_TABLE
+    assert 1 << (sup_rows - 1).bit_length() <= support_mod._MAX_TABLE
+    trace.enable()
+    try:
+        got = pkt_mod.truss_pkt(E, device=card)
+        loops = [sp for sp in trace.spans() if sp.name == "pkt.loop"]
+    finally:
+        trace.disable()
+        trace.clear()
+    eng = TrussEngine(device=card)
+    via_engine = eng.result(eng.submit(E))
+    want = _plain_reference().decompose(E, card)
+    assert np.array_equal(got, want.trussness)
+    assert np.array_equal(via_engine, want.trussness)
+    assert loops[0].attrs["blocks"] == kpeel.resident_grids()["loop"]
+    assert loops[0].attrs["blocks"] < (g.m + 256) // 256
+    print(json.dumps({"seed": seed, "m": g.m, "peel_rows": peel_rows,
+                      "support_rows": sup_rows,
+                      "triangles": want.triangles,
+                      "max_trussness": int(want.trussness.max()),
+                      "segments": [[sp.attrs["m"], sp.attrs["blocks"]]
+                                   for sp in loops]}))

@@ -221,13 +221,24 @@ def test_truss_batched_and_no_reorder():
 
 def test_union_runs_respect_the_table_bound(monkeypatch):
     """A bucket whose union would overflow the int32 table layout is split
-    into several unions; results are unchanged."""
+    into several unions; results are unchanged.  The kernel peel builds no
+    peel table, so its unions are bounded by the support rows alone."""
     fleet = [_er(16, 0.3, s) for s in range(60, 64)]
     eng = TrussEngine(device="cpu")
     ts = eng.submit_many(fleet)
-    monkeypatch.setattr(te.support_mod, "_MAX_TABLE", 256)
-    runs = TrussEngine._unions([p for p in eng._pending])
-    assert len(runs) > 1 and sum(len(r) for r in runs) == len(fleet)
+    ceiling = 128
+    monkeypatch.setattr(te.support_mod, "_MAX_TABLE", ceiling)
+    pending = list(eng._pending)
+    counted = {"kernel": lambda r: sum(p.sup_size for p in r),
+               "chunked": lambda r: max(sum(p.sup_size for p in r),
+                                        sum(p.peel_size for p in r))}
+    runs = {mode: TrussEngine._unions(pending, mode) for mode in counted}
+    for mode, rows in counted.items():
+        assert sum(len(r) for r in runs[mode]) == len(fleet)
+        assert len(runs[mode]) > 1
+        for r in runs[mode]:
+            assert len(r) == 1 or te._next_pow2(rows(r)) <= ceiling
+    assert len(runs["kernel"]) < len(runs["chunked"])
     eng.flush()
     for t, e in zip(ts, fleet):
         assert np.array_equal(eng.result(t), _oracle(e))

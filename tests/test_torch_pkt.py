@@ -7,6 +7,9 @@ trussness, initial support, levels, sub-levels and compactions.
 
 import functools
 import importlib
+import importlib.util
+import pathlib
+import sys
 
 import numpy as np
 import pytest
@@ -43,6 +46,19 @@ COMPACTION = {
 def _reference(name, compaction):
     return ref_pkt.pkt(ref_build(GRAPHS[name]), mode="chunked",
                        support_mode="jnp", chunk=16, **COMPACTION[compaction])
+
+
+@functools.lru_cache(maxsize=None)
+def _bench(rel):
+    """A file of the benchmark (``bench/<rel>``), loaded by path: its
+    generators and its plain reference import nothing of either package."""
+    path = pathlib.Path(__file__).resolve().parents[1] / "bench" / rel
+    name = "bench_" + rel.replace("/", "_")[:-3]
+    spec = importlib.util.spec_from_file_location(name, path)
+    mod = importlib.util.module_from_spec(spec)
+    sys.modules[name] = mod         # its dataclasses look their module up
+    spec.loader.exec_module(mod)
+    return mod
 
 
 def _assert_same(got, want):
@@ -221,12 +237,16 @@ def test_kernel_path_builds_no_table(name, compaction, table_mode,
 @pytest.mark.parametrize("phase", ["support", "peel"])
 @pytest.mark.parametrize("mode", ["kernel", "chunked"])
 def test_table_ceiling_refuses_as_the_reference(mode, phase, monkeypatch):
-    """The kernel path builds no table but refuses the graphs whose padded
-    support or peel table would overflow the int32 layout, as the reference
-    does."""
+    """Past the int32 table ceiling the reference refuses the graph, and
+    the port refuses it where it would build the table that overflows: the
+    support table, or the torch executors' peel table.  The kernel peel
+    builds no peel table: past the peel table's ceiling it decomposes the
+    graph as the reference does under the normal ceiling, and as the plain
+    reference of the benchmark does."""
     ref_support = importlib.import_module("repro.core.support")
     port_support = importlib.import_module("repro_torch.core.support")
     g = port_build(GRAPHS["rmat"])
+    want = _reference("rmat", "off")            # under the normal ceiling
     sup_pad = 1 << (port_support.support_table_size(g) - 1).bit_length()
     peel_pad = 1 << (port_support.peel_table_size(g) - 1).bit_length()
     assert peel_pad > sup_pad
@@ -236,9 +256,83 @@ def test_table_ceiling_refuses_as_the_reference(mode, phase, monkeypatch):
         monkeypatch.setattr(mod, "_MAX_TABLE", ceiling)
     with pytest.raises(ValueError, match="int32"):
         ref_pkt.pkt(ref_build(GRAPHS["rmat"]))
+
+    def run():
+        return port_pkt.pkt(g, mode=mode, support_mode=mode.replace(
+            "chunked", "torch"), compact_frac=None, device="cpu")
+
+    if (mode, phase) != ("kernel", "peel"):
+        with pytest.raises(ValueError, match="int32"):
+            run()
+        return
+    got = run()
+    _assert_same(got, want)
+    assert np.array_equal(got.trussness,
+                          _bench("reference/truss.py").decompose(g.El)
+                          .trussness)
+
+
+def test_kernel_path_refuses_a_work_list_past_int32(monkeypatch):
+    """The kernel path's one int32 limit: its frontier work list."""
+    monkeypatch.setattr(port_pkt.peel_kernel, "work_capacity",
+                        lambda m, rows: 1 << 31)
+    with pytest.raises(ValueError, match="work list"):
+        port_pkt.pkt(port_build(GRAPHS["er"]), device="cpu")
+
+
+def _shuffled_rows(E, seed):
+    """``E``'s rows in a seeded order, each row's endpoints flipped by a
+    coin, and that order."""
+    rng = np.random.default_rng(seed)
+    order = rng.permutation(E.shape[0])
+    rows = E[order]
+    flip = rng.random(rows.shape[0]) < 0.5
+    return np.where(flip[:, None], rows[:, ::-1], rows), order
+
+
+@pytest.mark.parametrize("entry", ["truss_pkt", "engine"])
+def test_kernel_path_accepts_past_the_peel_table_ceiling(entry, monkeypatch):
+    """``truss_pkt`` and ``TrussEngine.submit``/``result`` decompose a graph
+    whose padded peel table passes the int32 ceiling, which the reference
+    refuses; the engine's table executors still refuse it at ``submit``."""
+    from repro_torch.serve.truss_engine import TrussEngine
+
+    E = GRAPHS["rmat"]
+    rows, order = _shuffled_rows(E, 11)
+    port_support = importlib.import_module("repro_torch.core.support")
+    g, _, _ = port_pkt.preprocess(rows)
+    sup_pad = 1 << (port_support.support_table_size(g) - 1).bit_length()
+    peel_pad = 1 << (port_support.peel_table_size(g) - 1).bit_length()
+    assert peel_pad > sup_pad
+    want = ref_pkt.truss_pkt(rows)              # under the normal ceiling
+    for mod in (importlib.import_module("repro.core.support"), port_support):
+        monkeypatch.setattr(mod, "_MAX_TABLE", sup_pad)
     with pytest.raises(ValueError, match="int32"):
-        port_pkt.pkt(g, mode=mode, support_mode=mode.replace(
-            "chunked", "torch"), device="cpu")
+        ref_pkt.truss_pkt(rows)
+    if entry == "truss_pkt":
+        got = port_pkt.truss_pkt(rows, device="cpu")
+    else:
+        eng = TrussEngine(device="cpu")
+        got = eng.result(eng.submit(rows))
+        with pytest.raises(ValueError, match="int32"):
+            TrussEngine(mode="chunked", device="cpu").submit(rows)
+    assert np.array_equal(got, want)
+    truth = _bench("reference/truss.py").decompose(E).trussness
+    assert np.array_equal(got, truth[order])
+
+
+def test_truss_pkt_on_a_graph500_draw_equals_the_plain_reference():
+    """A scale-10 draw of the benchmark's Graph500 generator, its rows in a
+    seeded order, through ``truss_pkt`` on the CPU."""
+    data = _bench("gen/graph500.py").make(
+        dict(scale=10, edge_factor=16, a=0.57, b=0.19, c=0.19, d=0.05),
+        2**31 + 23)
+    E = data["graphs"][0]
+    rows, order = _shuffled_rows(data["rows"], 5)
+    got = port_pkt.truss_pkt(rows, device="cpu")
+    truth = _bench("reference/truss.py").decompose(E).trussness
+    assert truth.max() > 4
+    assert np.array_equal(got, truth[order])
 
 
 @pytest.mark.parametrize("compaction", sorted(COMPACTION))

@@ -263,3 +263,49 @@ def test_profiling_flag_follows_the_profiler():
             assert sp is not None
     assert not trace.profiling()
     assert [sp.name for sp in trace.spans()] == ["t.inside"]
+
+
+def test_one_shot_spans_nest_and_carry_their_counts():
+    """``truss_pkt`` is one ``pkt.one_shot`` span holding ``pkt.preprocess``
+    (the ``csr.*`` helpers inside it), ``pkt``'s spans and ``pkt.align``;
+    ``pkt.peel_csr`` carries the peel rows and the work list's size, each
+    ``pkt.loop`` the fused launch's grid (0: the CPU's host loop)."""
+    from repro_torch.core import support as support_mod
+    from repro_torch.core.pkt import preprocess, truss_pkt
+    from repro_torch.kernels import peel as kpeel
+
+    E = rmat_edges(8, 8, seed=4)
+    rows = np.ascontiguousarray(E[::-1, ::-1])
+    g, n, _ = preprocess(rows)
+    trace.clear()
+    trace.enable()
+    truss_pkt(rows, device="cpu", compact_frac=0.99, compact_min=0)
+    spans = trace.spans()
+    by_id = {sp.id: sp for sp in spans}
+
+    def ancestors(sp):
+        while sp.parent is not None:
+            sp = by_id[sp.parent]
+            yield sp.name
+
+    (shot,) = [sp for sp in spans if sp.name == "pkt.one_shot"]
+    assert shot.parent is None
+    assert shot.attrs == {"rows": len(rows), "n": n, "m": g.m}
+    for name in ("pkt.preprocess", "pkt.align"):
+        (sp,) = [sp for sp in spans if sp.name == name]
+        assert sp.parent == shot.id
+    for sp in spans:
+        if sp is not shot:
+            assert "pkt.one_shot" in set(ancestors(sp)), sp.name
+        if sp.name in ("csr.canonical", "csr.order", "csr.relabel"):
+            assert "pkt.preprocess" in set(ancestors(sp))
+        if sp.name == "csr.build":
+            # the graph's build, or a compacted subproblem's
+            assert {"pkt.preprocess", "pkt.compact"} & set(ancestors(sp))
+    (csr,) = [sp for sp in spans if sp.name == "pkt.peel_csr"]
+    rows_peel = support_mod.peel_table_size(g)
+    assert csr.attrs == {"m": g.m, "peel_rows": rows_peel,
+                         "work_cap": kpeel.work_capacity(g.m, rows_peel)}
+    loops = [sp for sp in spans if sp.name == "pkt.loop"]
+    assert len(loops) > 1
+    assert all(sp.attrs["blocks"] == 0 for sp in loops)
