@@ -9,7 +9,9 @@ decomposition" (ParK):
   - ``kcore_numpy``: Batagelj–Zaversnik bucket peeling, O(n + m). Oracle.
   - ``kcore_park``:  ParK-style level-synchronous peeling in torch ops —
     the same curr/next frontier pattern PKT uses, over vertices, with the
-    loops on the host (one read per sub-level).
+    loops on the host (one read per sub-level).  Its peel, ``peel_cores``,
+    takes device arrays: ``core/device_prep.py`` runs it on slots that
+    never left the card.
 """
 
 from __future__ import annotations
@@ -70,28 +72,43 @@ def kcore_numpy(g: CSRGraph) -> np.ndarray:
 def kcore_park(g: CSRGraph, *, device="cuda") -> np.ndarray:
     """ParK-style k-core; returns coreness per vertex (int32).
 
-    Level ``l`` removes, sub-level by sub-level, the frontier ``{v alive :
-    deg[v] <= l}`` at once and subtracts from every vertex the number of
-    its neighbours that just died: an ``index_add_`` of the dead CSR slots
-    (each slot adds its 0 or 1 at its own neighbour, so no address collects
-    the zeros).  The loops run on the host and read ``[#frontier, #alive]``
-    once per sub-level; a level ends with an empty sub-level, as in the JAX
-    package.  ``device`` is "cuda" (the default; raises when no card is
-    present) or "cpu".
+    ``peel_cores`` over the graph's CSR slots on ``device``: "cuda" (the
+    default; raises when no card is present) or "cpu".
     """
     device = resolve_device(device)
     n = g.n
     if n == 0:
         return np.zeros(0, np.int32)
-    dev = g.device_arrays(device)
-    N = dev["N"]
+    N = g.device_arrays(device)["N"]
     deg = torch.tensor(g.degrees, device=device)
     row_of_slot = torch.repeat_interleave(
         torch.arange(n, dtype=torch.int32, device=device),
         deg.to(torch.int64), output_size=N.shape[0])
+    core, _ = peel_cores(N, row_of_slot, deg)
+    return core.cpu().numpy()
+
+
+def peel_cores(nbr: torch.Tensor, row_of_slot: torch.Tensor,
+               deg: torch.Tensor) -> tuple[torch.Tensor, int]:
+    """The level-synchronous peel of ``kcore_park`` over device arrays.
+
+    ``nbr[j]`` and ``row_of_slot[j]`` are the two ends of adjacency slot
+    ``j`` (every undirected edge has a slot each way; their order is free)
+    and ``deg`` the vertices' degrees, whose dtype the coreness takes.
+    Level ``l`` removes, sub-level by sub-level, the frontier ``{v alive :
+    deg[v] <= l}`` at once and subtracts from every vertex the number of
+    its neighbours that just died: an ``index_add_`` of the dead slots
+    (each slot adds its 0 or 1 at its own neighbour, so no address collects
+    the zeros).  The loops run on the host and read ``[#frontier, #alive]``
+    once per sub-level; a level ends with an empty sub-level, as in the JAX
+    package.  Returns the coreness (on ``deg``'s device) and the number of
+    sub-levels run.
+    """
+    n = deg.shape[0]
+    device = deg.device
     core = torch.zeros(n, dtype=deg.dtype, device=device)
     alive = torch.ones(n, dtype=torch.bool, device=device)
-    l, todo = 0, n
+    l, todo, subs = 0, n, 0
     while todo > 0:
         moved = 1
         while moved > 0:
@@ -99,8 +116,9 @@ def kcore_park(g: CSRGraph, *, device="cuda") -> np.ndarray:
             core = torch.where(frontier, l, core)
             alive &= ~frontier
             dec = torch.zeros(n, dtype=deg.dtype, device=device)
-            dec.index_add_(0, N, frontier[row_of_slot].to(deg.dtype))
+            dec.index_add_(0, nbr, frontier[row_of_slot].to(deg.dtype))
             deg = torch.where(alive, deg - dec, deg)
             moved, todo = torch.stack([frontier.sum(), alive.sum()]).tolist()
+            subs += 1
         l += 1
-    return core.cpu().numpy()
+    return core, subs

@@ -57,6 +57,7 @@ import numpy as np
 import torch
 
 from repro_torch import trace
+from repro_torch.core import device_prep
 from repro_torch.core import support as support_mod
 from repro_torch.device import resolve_device, synchronize
 from repro_torch.graphs.csr import CSRGraph, edge_keys
@@ -67,6 +68,13 @@ from repro_torch.testing.chaos import fault_point
 _SENTINEL_S = peel_kernel.SENTINEL_S
 
 PEEL_MODES = ("chunked", "dense", "kernel")
+
+#: input rows from which ``truss_pkt`` on a CUDA device preprocesses and
+#: aligns there: a sort-and-scan pipeline costs tens of launches and one read
+#: a k-core sub-level.  On an H100 the host's numpy wins on a whole Graph500
+#: scale-10 graph (10,505 rows) and the card on every graph from 2^14 rows
+#: measured (PERF.md, section 6)
+DEVICE_PREP_MIN_ROWS = 1 << 14
 
 
 class PeelCSR(NamedTuple):
@@ -754,6 +762,24 @@ def align_to_input(trussness: np.ndarray, g: CSRGraph,
     return trussness[pos].astype(np.int64)
 
 
+def align_device(trussness: np.ndarray, g: CSRGraph, n: int,
+                 keys: torch.Tensor, device: torch.device) -> np.ndarray:
+    """``align_to_input`` with the row ``keys`` on ``device``: the search
+    runs against ``g``'s copy of ``El`` there (``g.device_arrays``), and
+    only the answer comes back.  A key missing from ``g.El`` raises
+    ``align_to_input``'s ``ValueError``."""
+    if g.m == 0 or keys.shape[0] == 0:
+        return align_to_input(trussness, g, None, n, keys=keys.cpu().numpy())
+    dev = g.device_arrays(device)
+    key_g = device_prep.edge_keys(dev["u"], dev["v"], n)
+    pos = torch.searchsorted(key_g, keys)
+    found = key_g[pos.clamp_(max=g.m - 1)] == keys
+    if not bool(found.all()):
+        return align_to_input(trussness, g, None, n, keys=keys.cpu().numpy())
+    T = torch.from_numpy(trussness).to(device)
+    return T[pos].to(torch.int64).cpu().numpy()
+
+
 def preprocess(edges, *, reorder: bool = True):
     """Host preprocessing of ``truss_pkt``: rows → ``(g, n, row_keys)``.
 
@@ -761,12 +787,14 @@ def preprocess(edges, *, reorder: bool = True):
     allowed), relabels vertices by increasing coreness when ``reorder`` (the
     paper's preprocessing), and builds the CSR graph.  ``row_keys`` locates
     each input row's edge in ``g`` for ``align_to_input``.  One
-    ``pkt.preprocess`` span, its helpers' ``csr.*`` spans inside.
+    ``pkt.preprocess`` span (``on="host"``, ``core_sublevels`` 0), its
+    helpers' ``csr.*`` spans inside.  ``device_prep.preprocess_device``
+    computes the same on a device.
     """
     from repro_torch.graphs.csr import (build_csr, canonical_edges_with_rows,
                                         degeneracy_order, relabel)
 
-    with trace.span("pkt.preprocess"):
+    with trace.span("pkt.preprocess", on="host", core_sublevels=0):
         E, lo, hi, n = canonical_edges_with_rows(edges)
         if E.size == 0:
             return build_csr(E, 0), 0, np.zeros(0, np.int64)
@@ -798,12 +826,18 @@ def truss_pkt(edges: np.ndarray, *, reorder: bool = True,
     bounds are rejected.  With ``reorder`` (the paper's preprocessing)
     vertices are relabeled by increasing coreness before decomposition.
     Runs on ``device`` ("cuda" by default; raises when no card is present).
-    The call is one ``pkt.one_shot`` span (``rows``, ``n``, ``m``) holding
-    ``pkt.preprocess``, ``pkt``'s spans and ``pkt.align``.
+    On a CUDA device, from ``DEVICE_PREP_MIN_ROWS`` rows on, the
+    preprocessing and the alignment run there too (``device_prep``); else
+    on the host.  The call is one ``pkt.one_shot`` span (``rows``, ``n``,
+    ``m``) holding ``pkt.preprocess``, ``pkt``'s spans and ``pkt.align``.
     """
     device = resolve_device(device)
     with trace.span("pkt.one_shot", rows=len(edges)):
-        g, n, row_keys = preprocess(edges, reorder=reorder)
+        if device.type == "cuda" and len(edges) >= DEVICE_PREP_MIN_ROWS:
+            g, n, row_keys = device_prep.preprocess_device(
+                edges, reorder=reorder, device=device)
+        else:
+            g, n, row_keys = preprocess(edges, reorder=reorder)
         trace.set(n=n, m=g.m)
         if g.m == 0:
             return np.zeros(0, np.int64)
@@ -811,4 +845,6 @@ def truss_pkt(edges: np.ndarray, *, reorder: bool = True,
                   table_mode=table_mode, compact_frac=compact_frac,
                   compact_min=compact_min, device=device)
         with trace.span("pkt.align"):
+            if isinstance(row_keys, torch.Tensor):
+                return align_device(res.trussness, g, n, row_keys, device)
             return align_to_input(res.trussness, g, None, n, keys=row_keys)

@@ -30,7 +30,11 @@ The spans the port places, and what reads them (PERF.md, section 3):
 ``engine.submit`` (``ticket``, ``m``), ``engine.flush``,
 ``engine.dispatch`` (``graphs``, ``levels``, ``sublevels``, ``launches``),
 ``engine.union``, ``engine.align``; ``csr.canonical``, ``csr.order``,
-``csr.relabel``, ``csr.build`` (``m``); ``pkt.support``, ``pkt.peel_csr``
+``csr.relabel``, ``csr.build`` (``m``); ``pkt.one_shot`` (``rows``, ``n``,
+``m``), ``pkt.preprocess`` (``on``: "host" or the device's type;
+``core_sublevels``: the device k-core's sub-levels, 0 on the host),
+``prep.canonical``, ``prep.order``, ``prep.build`` (``m``; the device
+path's steps), ``pkt.align``; ``pkt.support``, ``pkt.peel_csr``
 (``pkt.tables`` for the torch executors), ``pkt.loop`` (``levels``,
 ``sublevels``; for the kernel executor ``host_reads``, its blocking reads
 of the device's counts — one a segment on the card, one a sub-level on

@@ -291,3 +291,52 @@ def test_scale18_graphs_past_the_peel_table_ceiling(card, seed, peel_rows):
                       "max_trussness": int(want.trussness.max()),
                       "segments": [[sp.attrs["m"], sp.attrs["blocks"]]
                                    for sp in loops]}))
+
+
+def test_truss_pkt_preprocesses_on_the_card_from_its_threshold(card):
+    """From ``DEVICE_PREP_MIN_ROWS`` rows on, ``truss_pkt`` on the card
+    builds the graph and aligns the answer there: a seeded scale-16 R-MAT
+    graph, its rows shuffled and flipped, gives the host path's graph and
+    answer and the plain reference's trussness; the ``pkt.preprocess`` span
+    says ``on="cuda"`` with the device k-core's sub-levels.  The first
+    ``DEVICE_PREP_MIN_ROWS`` of those rows take the card's path too, and a
+    graph below the threshold takes the host path (``on="host"``); both
+    answer as the plain reference."""
+    from repro_torch.core import device_prep
+
+    E = rmat_edges(16, edge_factor=16, seed=5)
+    small = rmat_edges(10, edge_factor=16, seed=5)
+    assert len(small) < pkt_mod.DEVICE_PREP_MIN_ROWS <= len(E)
+    rng = np.random.default_rng(6)
+    order = rng.permutation(len(E))
+    flip = rng.random(len(E)) < 0.5
+    rows = np.where(flip[:, None], E[order][:, ::-1], E[order])
+    trace.enable()
+    try:
+        got = pkt_mod.truss_pkt(rows, device=card)
+        got_edge = pkt_mod.truss_pkt(rows[:pkt_mod.DEVICE_PREP_MIN_ROWS],
+                                     device=card)
+        got_small = pkt_mod.truss_pkt(small, device=card)
+        pre = [sp for sp in trace.spans() if sp.name == "pkt.preprocess"]
+    finally:
+        trace.disable()
+        trace.clear()
+    g, n, keys = pkt_mod.preprocess(rows)
+    g2, n2, keys2 = device_prep.preprocess_device(rows, device=card)
+    assert (g2.n, g2.m, n2) == (g.n, g.m, n)
+    for f in ("Es", "N", "Eid", "El", "Eo"):
+        a, b = getattr(g, f), getattr(g2, f)
+        assert a.dtype == b.dtype and np.array_equal(a, b), f
+    assert np.array_equal(keys2.cpu().numpy(), keys)
+    host = pkt_mod.align_to_input(pkt_mod.pkt(g, device=card).trussness, g,
+                                  None, n, keys=keys)
+    ref = _plain_reference()
+    assert np.array_equal(got, host)
+    assert np.array_equal(got, ref.decompose(E, card).trussness[order])
+    edge = E[order[:pkt_mod.DEVICE_PREP_MIN_ROWS]]
+    assert np.array_equal(got_edge, ref.decompose(edge, card).trussness)
+    assert np.array_equal(got_small, ref.decompose(small, card).trussness)
+    assert [sp.attrs["on"] for sp in pre] == ["cuda", "cuda", "host"]
+    assert pre[0].attrs["core_sublevels"] > 0
+    assert pre[1].attrs["core_sublevels"] > 0
+    assert pre[2].attrs["core_sublevels"] == 0

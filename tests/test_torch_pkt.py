@@ -22,6 +22,7 @@ from repro_torch.graphs.csr import build_csr as port_build
 
 # ``repro.core`` re-exports the ``pkt`` function, which shadows the module
 ref_pkt = importlib.import_module("repro.core.pkt")
+ref_csr = importlib.import_module("repro.graphs.csr")
 port_pkt = importlib.import_module("repro_torch.core.pkt")
 
 
@@ -373,3 +374,110 @@ def test_count_launches_counts_the_loop_once_per_segment(compaction):
     assert after["plain"] - before["plain"] == res.compactions + 1
     assert counted["plain"] == (1 + (res.compactions + 1)
                                 + 2 * res.sublevels + res.levels)
+
+
+def _messy_rows(seed):
+    """An R-MAT graph and a hub, ids spread with gaps, rows duplicated and
+    endpoints swapped, in a seeded order."""
+    rng = np.random.default_rng(seed)
+    E = rmat_edges(8, edge_factor=6, seed=seed)
+    hub = np.stack([np.zeros(60, np.int64),
+                    rng.choice(np.arange(1, 256), 60, replace=False)], axis=1)
+    R = np.concatenate([E, hub]) * 3 + 5
+    R = np.concatenate([R, R[:40, ::-1], R[10:30]])
+    flip = rng.random(R.shape[0]) < 0.5
+    R = np.where(flip[:, None], R[:, ::-1], R)
+    return R[rng.permutation(R.shape[0])]
+
+
+PREP_ROWS = {
+    "messy0": _messy_rows(0),
+    "messy1": _messy_rows(1),
+    "messy1_int32": _messy_rows(1).astype(np.int32),
+    "one_edge": np.array([[7, 3]], np.int64),
+    "isolated_max_id": np.array([[0, 1], [1, 2], [2, 0], [999, 4]], np.int64),
+    "empty": np.zeros((0, 2), np.int64),
+}
+
+
+def _ref_preprocess(rows, reorder):
+    """The JAX package's preprocessing of ``truss_pkt`` on ``rows``: its
+    graph, id space and row keys, from ``repro.graphs.csr``'s helpers."""
+    E, lo, hi, n = ref_csr.canonical_edges_with_rows(rows)
+    if E.size == 0:
+        return ref_build(E, 0), 0, np.zeros(0, np.int64)
+    if reorder:
+        perm = ref_csr.degeneracy_order(E, n)
+        E = ref_csr.relabel(E, perm)
+        lo, hi = perm[lo], perm[hi]
+    keys = ref_csr.edge_keys(np.minimum(lo, hi), np.maximum(lo, hi), n)
+    return ref_build(E, n), n, keys
+
+
+@pytest.mark.parametrize("reorder", [True, False])
+@pytest.mark.parametrize("name", sorted(PREP_ROWS))
+def test_device_preprocess_equals_host(name, reorder):
+    """``device_prep.preprocess_device`` (here on the CPU) equals the JAX
+    package's preprocessing field for field, row keys included, and
+    ``align_device`` equals its ``align_to_input`` on them."""
+    import torch
+
+    from repro_torch.core import device_prep
+
+    rows = PREP_ROWS[name]
+    g, n, keys = _ref_preprocess(rows, reorder)
+    g2, n2, keys2 = device_prep.preprocess_device(rows, reorder=reorder,
+                                                  device="cpu")
+    assert (g2.n, g2.m, n2) == (g.n, g.m, n)
+    for f in ("Es", "N", "Eid", "El", "Eo"):
+        a, b = getattr(g, f), getattr(g2, f)
+        assert a.dtype == b.dtype and np.array_equal(a, b), f
+    assert keys2.dtype == torch.int64
+    got_keys = keys2.numpy()
+    assert got_keys.dtype == keys.dtype and np.array_equal(got_keys, keys)
+    truss = np.random.default_rng(3).integers(2, 9, g.m).astype(np.int32)
+    want = ref_pkt.align_to_input(truss, g, None, n, keys=keys)
+    got = port_pkt.align_device(truss, g2, n2, keys2, torch.device("cpu"))
+    assert got.dtype == want.dtype and np.array_equal(got, want)
+
+
+@pytest.mark.parametrize("name", ["float_dtype", "negative_id", "self_loop",
+                                  "huge_id", "bad_shape"])
+def test_device_preprocess_rejects_as_host(name):
+    """The rows the JAX package's ``check_edge_array`` rejects, with its
+    messages."""
+    from repro_torch.core import device_prep
+
+    bad = {"float_dtype": np.array([[0.0, 1.0]]),
+           "negative_id": np.array([[0, 1], [4, -2], [-1, 2]], np.int64),
+           "self_loop": np.array([[0, 1], [3, 3]], np.int64),
+           "huge_id": np.array([[0, np.iinfo(np.int32).max]], np.int64),
+           "bad_shape": np.array([[0, 1, 2]], np.int64)}[name]
+    with pytest.raises(ValueError) as ref:
+        ref_csr.check_edge_array(bad)
+    with pytest.raises(ValueError) as dev:
+        device_prep.preprocess_device(bad, device="cpu")
+    assert str(dev.value) == str(ref.value)
+
+
+def test_align_device_rejects_missing_edges():
+    """A key missing from the graph raises the JAX package's
+    ``align_to_input`` error, and the keys present align as there."""
+    import torch
+
+    from repro_torch.core import device_prep
+
+    g, n, keys = _ref_preprocess(GRAPHS["er"], True)
+    g2, n2, keys2 = device_prep.preprocess_device(GRAPHS["er"], device="cpu")
+    truss = np.random.default_rng(4).integers(2, 9, g.m).astype(np.int32)
+    assert np.array_equal(
+        port_pkt.align_device(truss, g2, n2, keys2, torch.device("cpu")),
+        ref_pkt.align_to_input(truss, g, None, n, keys=keys))
+    missing = np.concatenate([keys, [n * n - 1, 10 ** 9]])
+    with pytest.raises(ValueError) as ref:
+        ref_pkt.align_to_input(truss, g, None, n, keys=missing)
+    with pytest.raises(ValueError) as dev:
+        port_pkt.align_device(truss, g2, n2, torch.from_numpy(missing),
+                              torch.device("cpu"))
+    assert "not present" in str(dev.value)
+    assert str(dev.value) == str(ref.value)

@@ -11,6 +11,7 @@ import time
 
 import numpy as np
 import pytest
+import torch
 from torch.profiler import ProfilerActivity, profile
 
 from repro_torch import trace
@@ -265,11 +266,38 @@ def test_profiling_flag_follows_the_profiler():
     assert [sp.name for sp in trace.spans()] == ["t.inside"]
 
 
+def test_device_preprocess_span_carries_its_path_and_sublevels():
+    """``device_prep.preprocess_device`` is one ``pkt.preprocess`` span with
+    the device's type and the k-core's sub-levels (as many as
+    ``kcore.peel_cores`` runs), its three steps inside."""
+    from repro_torch.core import device_prep
+    from repro_torch.core.kcore import peel_cores
+
+    E = rmat_edges(8, 8, seed=4)
+    g = build_csr(E)
+    deg = torch.tensor(g.degrees)
+    rows = torch.repeat_interleave(torch.arange(g.n, dtype=torch.int32),
+                                   deg.to(torch.int64))
+    _, subs = peel_cores(torch.tensor(g.N), rows, deg)
+    trace.enable()
+    device_prep.preprocess_device(E, device="cpu")
+    spans = trace.spans()
+    (pre,) = [sp for sp in spans if sp.name == "pkt.preprocess"]
+    assert pre.parent is None
+    assert pre.attrs == {"on": "cpu", "core_sublevels": subs}
+    assert subs > 0
+    steps = [sp for sp in spans if sp.parent == pre.id]
+    assert [sp.name for sp in steps] == ["prep.canonical", "prep.order",
+                                         "prep.build"]
+    assert all(sp.attrs == {"m": len(E)} for sp in steps)
+
+
 def test_one_shot_spans_nest_and_carry_their_counts():
     """``truss_pkt`` is one ``pkt.one_shot`` span holding ``pkt.preprocess``
-    (the ``csr.*`` helpers inside it), ``pkt``'s spans and ``pkt.align``;
-    ``pkt.peel_csr`` carries the peel rows and the work list's size, each
-    ``pkt.loop`` the fused launch's grid (0: the CPU's host loop)."""
+    (the ``csr.*`` helpers inside it; on the CPU the host path, no device
+    k-core), ``pkt``'s spans and ``pkt.align``; ``pkt.peel_csr`` carries the
+    peel rows and the work list's size, each ``pkt.loop`` the fused launch's
+    grid (0: the CPU's host loop)."""
     from repro_torch.core import support as support_mod
     from repro_torch.core.pkt import preprocess, truss_pkt
     from repro_torch.kernels import peel as kpeel
@@ -294,6 +322,8 @@ def test_one_shot_spans_nest_and_carry_their_counts():
     for name in ("pkt.preprocess", "pkt.align"):
         (sp,) = [sp for sp in spans if sp.name == name]
         assert sp.parent == shot.id
+    (pre,) = [sp for sp in spans if sp.name == "pkt.preprocess"]
+    assert pre.attrs == {"on": "host", "core_sublevels": 0}
     for sp in spans:
         if sp is not shot:
             assert "pkt.one_shot" in set(ancestors(sp)), sp.name
