@@ -46,6 +46,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch.core.support import check_axis
 from repro_torch.device import resolve_device
 from repro_torch.testing.chaos import fault_point
 
@@ -166,9 +167,7 @@ class TrussHierarchy:
 
     def __init__(self, trussness: np.ndarray, triangles: np.ndarray, *,
                  mode: str = "device", device="cuda"):
-        if mode not in HIER_MODES:
-            raise ValueError(
-                f"mode must be one of {HIER_MODES}, got {mode!r}")
+        check_axis("mode", mode, HIER_MODES)
         self.mode = mode
         self.device = resolve_device(device)
         self.T = np.asarray(trussness, dtype=np.int64)

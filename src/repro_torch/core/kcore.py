@@ -2,7 +2,7 @@
 
 The paper preprocesses every graph with a k-core decomposition and a
 coreness reordering (its Table 2 shows up to 17x triangle-counting speedups
-from the ordering); ``graphs.csr.degeneracy_order`` calls ``kcore_numpy``
+from the ordering); ``core.prep.degeneracy_order`` calls ``kcore_numpy``
 for it.  PKT itself is "based on a recently proposed algorithm for k-core
 decomposition" (ParK):
 
@@ -10,8 +10,8 @@ decomposition" (ParK):
   - ``kcore_park``:  ParK-style level-synchronous peeling in torch ops —
     the same curr/next frontier pattern PKT uses, over vertices, with the
     loops on the host (one read per sub-level).  Its peel, ``peel_cores``,
-    takes device arrays: ``core/device_prep.py`` runs it on slots that
-    never left the card.
+    takes device arrays: ``core/prep.py`` runs it on slots that never left
+    the card.
 """
 
 from __future__ import annotations

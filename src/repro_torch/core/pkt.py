@@ -57,10 +57,13 @@ import numpy as np
 import torch
 
 from repro_torch import trace
-from repro_torch.core import device_prep
 from repro_torch.core import support as support_mod
+# ``preprocess`` and ``align_to_input`` are imported by name from here too
+from repro_torch.core.prep import (align, align_to_input,  # noqa: F401
+                                   prepare, preprocess)
+from repro_torch.core.support import check_axis
 from repro_torch.device import resolve_device, synchronize
-from repro_torch.graphs.csr import CSRGraph, edge_keys
+from repro_torch.graphs.csr import CSRGraph, build_csr
 from repro_torch.kernels import peel as peel_kernel
 from repro_torch.kernels import wedge_common
 from repro_torch.testing.chaos import fault_point
@@ -68,13 +71,6 @@ from repro_torch.testing.chaos import fault_point
 _SENTINEL_S = peel_kernel.SENTINEL_S
 
 PEEL_MODES = ("chunked", "dense", "kernel")
-
-#: input rows from which ``truss_pkt`` on a CUDA device preprocesses and
-#: aligns there: a sort-and-scan pipeline costs tens of launches and one read
-#: a k-core sub-level.  On an H100 the host's numpy wins on a whole Graph500
-#: scale-10 graph (10,505 rows) and the card on every graph from 2^14 rows
-#: measured (PERF.md, section 6)
-DEVICE_PREP_MIN_ROWS = 1 << 14
 
 
 class PeelCSR(NamedTuple):
@@ -417,8 +413,6 @@ def _make_subproblem(El_rows: np.ndarray, ids: np.ndarray,
     executor (``mode="kernel"``) gets the padded CSR and no table; the
     torch executors get a table built where ``table_mode`` says.
     """
-    from repro_torch.graphs.csr import build_csr
-
     m_sub = El_rows.shape[0]
     verts = np.unique(El_rows)
     E_sub = np.searchsorted(verts, El_rows).astype(np.int64)
@@ -547,8 +541,7 @@ def peel_live_subset(El: np.ndarray, live_ids: np.ndarray,
     ``pinned_live`` marks schedule edges exactly as in ``_peel_loop``.
     Returns the final S per ``live_ids`` row.
     """
-    if mode not in PEEL_MODES:
-        raise ValueError(f"mode must be one of {PEEL_MODES}, got {mode!r}")
+    check_axis("mode", mode, PEEL_MODES)
     device = resolve_device(device)
     live_ids = np.asarray(live_ids, dtype=np.int64)
     k = live_ids.shape[0]
@@ -572,9 +565,7 @@ def peel_live_subset(El: np.ndarray, live_ids: np.ndarray,
 
 def pkt(g: CSRGraph, *, chunk: int | None = None, mode: str = "kernel",
         peel_mode: str | None = None, support_mode: str = "kernel",
-        table_mode: str | None = None,
-        support_table: support_mod.WedgeTable | None = None,
-        peel_table: support_mod.WedgeTable | None = None,
+        table_mode: str = "device",
         compact_frac: float | None = _COMPACT_FRAC,
         compact_min: int = _COMPACT_MIN,
         phase_timings: bool = False, support_site: bool = True,
@@ -594,14 +585,10 @@ def pkt(g: CSRGraph, *, chunk: int | None = None, mode: str = "kernel",
         support_mode: support executor — one of
             ``support.SUPPORT_MODES`` ("torch", "kernel").
         table_mode: where the torch executors' wedge tables are built
-            (``support.TABLE_MODES``): "device" — the default, unless
-            prebuilt host tables are passed — or "numpy" (built on the host,
-            kept as the parity oracle).  The kernel executors read the CSR
-            and build no table; they ignore ``table_mode`` and the two
-            tables below.
-        support_table: optional prebuilt host support table (implies
-            ``table_mode="numpy"`` unless overridden).
-        peel_table: optional prebuilt host peel table (same implication).
+            (``support.TABLE_MODES``): "device" (the default) or "numpy"
+            (built on the host, kept as the parity oracle).  The kernel
+            executors read the CSR and build no table; they ignore
+            ``table_mode``.
         compact_frac: live-edge compaction threshold (DESIGN.md §10): once
             a peel segment leaves fewer than ``compact_frac · m`` edges
             live (and more than ``compact_min``), survivors are gathered
@@ -631,17 +618,9 @@ def pkt(g: CSRGraph, *, chunk: int | None = None, mode: str = "kernel",
         RuntimeError: ``device`` is CUDA and no card is present.
     """
     mode = mode if peel_mode is None else peel_mode
-    if mode not in PEEL_MODES:
-        raise ValueError(f"mode must be one of {PEEL_MODES}, got {mode!r}")
-    if support_mode not in support_mod.SUPPORT_MODES:
-        raise ValueError(f"support_mode must be one of "
-                         f"{support_mod.SUPPORT_MODES}, got {support_mode!r}")
-    if table_mode is None:
-        table_mode = ("numpy" if (support_table is not None
-                                  or peel_table is not None) else "device")
-    if table_mode not in support_mod.TABLE_MODES:
-        raise ValueError(f"table_mode must be one of "
-                         f"{support_mod.TABLE_MODES}, got {table_mode!r}")
+    check_axis("mode", mode, PEEL_MODES)
+    check_axis("support_mode", support_mode, support_mod.SUPPORT_MODES)
+    check_axis("table_mode", table_mode, support_mod.TABLE_MODES)
     device = resolve_device(device)
     if g.m == 0:
         return PKTResult(np.zeros(0, np.int32), np.zeros(0, np.int32), 0, 0,
@@ -649,8 +628,7 @@ def pkt(g: CSRGraph, *, chunk: int | None = None, mode: str = "kernel",
     with (trace.collect() if phase_timings
           else contextlib.nullcontext()) as recorded:
         res = _pkt(g, chunk=chunk, mode=mode, support_mode=support_mode,
-                   table_mode=table_mode, support_table=support_table,
-                   peel_table=peel_table, compact_frac=compact_frac,
+                   table_mode=table_mode, compact_frac=compact_frac,
                    compact_min=compact_min, support_site=support_site,
                    sync=phase_timings, device=device)
     if phase_timings:
@@ -659,7 +637,7 @@ def pkt(g: CSRGraph, *, chunk: int | None = None, mode: str = "kernel",
 
 
 def _pkt(g: CSRGraph, *, chunk, mode, support_mode, table_mode,
-         support_table, peel_table, compact_frac, compact_min, support_site,
+         compact_frac, compact_min, support_site,
          sync: bool, device: torch.device) -> PKTResult:
     """``pkt`` on a non-empty graph, its arguments checked.  Each phase is a
     span (``pkt.support``, ``pkt.peel_csr`` or ``pkt.tables``, then
@@ -668,16 +646,14 @@ def _pkt(g: CSRGraph, *, chunk, mode, support_mode, table_mode,
     if support_site:
         fault_point("support", rung=f"{support_mode}/{table_mode}")
     # the kernel executor reads the CSR: no support table, host or device
-    if support_mode == "kernel" or (table_mode == "device"
-                                    and support_table is None):
+    if support_mode == "kernel" or table_mode == "device":
         with trace.span("pkt.support", m=g.m):
             S0_dev = support_mod._support_device(
                 g, mode=support_mode, chunk=chunk, device=device)
             S0 = S0_dev.cpu().numpy()
     else:
         with trace.span("pkt.tables", m=g.m):
-            stab = (support_table if support_table is not None
-                    else support_mod.build_support_table(g))
+            stab = support_mod.build_support_table(g)
         with trace.span("pkt.support", m=g.m):
             S0 = support_mod.compute_support(
                 g, stab, mode=support_mode, chunk=chunk, device=device)
@@ -692,14 +668,12 @@ def _pkt(g: CSRGraph, *, chunk, mode, support_mode, table_mode,
             tabs = prepare_peel_csr(g, device=device)
             trace.set(peel_rows=tabs.peel_rows, work_cap=tabs.work_cap)
             chunk_eff = n_chunks = None
-        elif table_mode == "device" and peel_table is None:
+        elif table_mode == "device":
             tabs, chunk_eff, n_chunks = prepare_peel_device(g, chunk,
                                                             device=device)
         else:
-            ptab = (peel_table if peel_table is not None
-                    else support_mod.build_peel_table(g))
-            tabs, chunk_eff, n_chunks = prepare_peel(ptab, g.m, chunk,
-                                                     device=device)
+            tabs, chunk_eff, n_chunks = prepare_peel(
+                support_mod.build_peel_table(g), g.m, chunk, device=device)
         if sync:
             synchronize(device)
 
@@ -730,89 +704,10 @@ def _pkt(g: CSRGraph, *, chunk, mode, support_mode, table_mode,
     )
 
 
-def align_to_input(trussness: np.ndarray, g: CSRGraph,
-                   edges: np.ndarray | None, n: int, *,
-                   keys: np.ndarray | None = None) -> np.ndarray:
-    """Map per-``g.El``-row trussness back to the caller's edge order.
-
-    ``edges`` must be the canonical (u<v) edge array ``g`` was built from
-    (possibly in a different row order); ``g.El`` rows are lexicographically
-    sorted, so each input edge is located by key search.  Callers that
-    already hold per-row keys (``u*n + v`` in g's id space) may pass ``keys``
-    instead of ``edges``.  A key missing from ``g.El`` raises a descriptive
-    ValueError.
-    """
-    key_g = edge_keys(g.El[:, 0], g.El[:, 1], n)
-    if keys is None:
-        keys = edge_keys(edges[:, 0], edges[:, 1], n)
-    keys = np.asarray(keys, dtype=np.int64)
-    if key_g.shape[0] == 0:
-        if keys.shape[0] == 0:
-            return np.zeros(0, np.int64)
-        raise ValueError(
-            f"cannot align {keys.shape[0]} edge(s) to an empty graph")
-    pos = np.searchsorted(key_g, keys)
-    safe = np.minimum(pos, key_g.shape[0] - 1)
-    bad = (pos >= key_g.shape[0]) | (key_g[safe] != keys)
-    if bad.any():
-        k = int(keys[bad][0])
-        raise ValueError(
-            f"{int(bad.sum())} edge(s) not present in the graph's edge list; "
-            f"first missing: ({k // n}, {k % n})")
-    return trussness[pos].astype(np.int64)
-
-
-def align_device(trussness: np.ndarray, g: CSRGraph, n: int,
-                 keys: torch.Tensor, device: torch.device) -> np.ndarray:
-    """``align_to_input`` with the row ``keys`` on ``device``: the search
-    runs against ``g``'s copy of ``El`` there (``g.device_arrays``), and
-    only the answer comes back.  A key missing from ``g.El`` raises
-    ``align_to_input``'s ``ValueError``."""
-    if g.m == 0 or keys.shape[0] == 0:
-        return align_to_input(trussness, g, None, n, keys=keys.cpu().numpy())
-    dev = g.device_arrays(device)
-    key_g = device_prep.edge_keys(dev["u"], dev["v"], n)
-    pos = torch.searchsorted(key_g, keys)
-    found = key_g[pos.clamp_(max=g.m - 1)] == keys
-    if not bool(found.all()):
-        return align_to_input(trussness, g, None, n, keys=keys.cpu().numpy())
-    T = torch.from_numpy(trussness).to(device)
-    return T[pos].to(torch.int64).cpu().numpy()
-
-
-def preprocess(edges, *, reorder: bool = True):
-    """Host preprocessing of ``truss_pkt``: rows → ``(g, n, row_keys)``.
-
-    Validates and canonicalizes the rows (endpoint order free, duplicates
-    allowed), relabels vertices by increasing coreness when ``reorder`` (the
-    paper's preprocessing), and builds the CSR graph.  ``row_keys`` locates
-    each input row's edge in ``g`` for ``align_to_input``.  One
-    ``pkt.preprocess`` span (``on="host"``, ``core_sublevels`` 0), its
-    helpers' ``csr.*`` spans inside.  ``device_prep.preprocess_device``
-    computes the same on a device.
-    """
-    from repro_torch.graphs.csr import (build_csr, canonical_edges_with_rows,
-                                        degeneracy_order, relabel)
-
-    with trace.span("pkt.preprocess", on="host", core_sublevels=0):
-        E, lo, hi, n = canonical_edges_with_rows(edges)
-        if E.size == 0:
-            return build_csr(E, 0), 0, np.zeros(0, np.int64)
-        if reorder:
-            perm = degeneracy_order(E, n)
-            r_edges = relabel(E, perm)
-            rl, rh = perm[lo], perm[hi]
-            row_keys = edge_keys(np.minimum(rl, rh), np.maximum(rl, rh), n)
-        else:
-            r_edges = E
-            row_keys = edge_keys(lo, hi, n)
-        return build_csr(r_edges, n), n, row_keys
-
-
 def truss_pkt(edges: np.ndarray, *, reorder: bool = True,
               chunk: int | None = None, mode: str = "kernel",
               support_mode: str = "kernel",
-              table_mode: str | None = None,
+              table_mode: str = "device",
               compact_frac: float | None = _COMPACT_FRAC,
               compact_min: int = _COMPACT_MIN,
               device="cuda") -> np.ndarray:
@@ -826,18 +721,14 @@ def truss_pkt(edges: np.ndarray, *, reorder: bool = True,
     bounds are rejected.  With ``reorder`` (the paper's preprocessing)
     vertices are relabeled by increasing coreness before decomposition.
     Runs on ``device`` ("cuda" by default; raises when no card is present).
-    On a CUDA device, from ``DEVICE_PREP_MIN_ROWS`` rows on, the
-    preprocessing and the alignment run there too (``device_prep``); else
-    on the host.  The call is one ``pkt.one_shot`` span (``rows``, ``n``,
-    ``m``) holding ``pkt.preprocess``, ``pkt``'s spans and ``pkt.align``.
+    The preprocessing and the alignment run where ``prep.prepare`` says: on
+    a CUDA device from ``prep.DEVICE_PREP_MIN_ROWS`` rows on, else on the
+    host.  The call is one ``pkt.one_shot`` span (``rows``, ``n``, ``m``)
+    holding ``pkt.preprocess``, ``pkt``'s spans and ``pkt.align``.
     """
     device = resolve_device(device)
     with trace.span("pkt.one_shot", rows=len(edges)):
-        if device.type == "cuda" and len(edges) >= DEVICE_PREP_MIN_ROWS:
-            g, n, row_keys = device_prep.preprocess_device(
-                edges, reorder=reorder, device=device)
-        else:
-            g, n, row_keys = preprocess(edges, reorder=reorder)
+        g, n, row_keys = prepare(edges, reorder=reorder, device=device)
         trace.set(n=n, m=g.m)
         if g.m == 0:
             return np.zeros(0, np.int64)
@@ -845,6 +736,4 @@ def truss_pkt(edges: np.ndarray, *, reorder: bool = True,
                   table_mode=table_mode, compact_frac=compact_frac,
                   compact_min=compact_min, device=device)
         with trace.span("pkt.align"):
-            if isinstance(row_keys, torch.Tensor):
-                return align_device(res.trussness, g, n, row_keys, device)
-            return align_to_input(res.trussness, g, None, n, keys=row_keys)
+            return align(res.trussness, g, n, row_keys, device)

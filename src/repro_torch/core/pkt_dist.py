@@ -191,12 +191,9 @@ def pkt_dist(g: CSRGraph, *, chunk: int = 1 << 12,
             for the CPU); a table slice beyond the int32 layout.
         RuntimeError: ``device`` is CUDA and no card is present.
     """
-    if support_mode not in support_mod.SUPPORT_MODES:
-        raise ValueError(f"support_mode must be one of "
-                         f"{support_mod.SUPPORT_MODES}, got {support_mode!r}")
-    if table_mode not in support_mod.TABLE_MODES:
-        raise ValueError(f"table_mode must be one of "
-                         f"{support_mod.TABLE_MODES}, got {table_mode!r}")
+    support_mod.check_axis("support_mode", support_mode,
+                           support_mod.SUPPORT_MODES)
+    support_mod.check_axis("table_mode", table_mode, support_mod.TABLE_MODES)
     device = resolve_device(device)
     group, world, rank = _rank_of(group, device)
     m = g.m

@@ -47,6 +47,13 @@ SUPPORT_MODES = ("torch", "kernel")
 TABLE_MODES = ("numpy", "device")
 
 
+def check_axis(name: str, value, allowed: tuple) -> None:
+    """Raise ``ValueError`` unless the executor-axis argument ``name`` is
+    one of ``allowed`` (``PEEL_MODES``, ``SUPPORT_MODES``, ...)."""
+    if value not in allowed:
+        raise ValueError(f"{name} must be one of {allowed}, got {value!r}")
+
+
 @dataclasses.dataclass(frozen=True)
 class WedgeTable:
     """Flat (edge, candidate-slot) table + per-query search ranges."""
@@ -329,13 +336,10 @@ def compute_support(g: CSRGraph, table: WedgeTable | None = None, *,
     executor runs: "cuda" by
     default (raises when no card is present), "cpu" on request.
     """
-    if mode not in SUPPORT_MODES:
-        raise ValueError(f"mode must be one of {SUPPORT_MODES}, got {mode!r}")
+    check_axis("mode", mode, SUPPORT_MODES)
     if table_mode is None:
         table_mode = "numpy" if table is not None else "device"
-    if table_mode not in TABLE_MODES:
-        raise ValueError(
-            f"table_mode must be one of {TABLE_MODES}, got {table_mode!r}")
+    check_axis("table_mode", table_mode, TABLE_MODES)
     device = resolve_device(device)
     if g.m == 0:
         return np.zeros(0, np.int32)

@@ -63,14 +63,15 @@ from repro_torch import trace
 from repro_torch.core import support as support_mod
 from repro_torch.core.hierarchy import HIER_MODES, TrussHierarchy
 from repro_torch.core.pkt import (_COMPACT_FRAC, _COMPACT_MIN, PEEL_MODES,
-                                  align_to_input, peel_live_subset, pkt,
-                                  truss_pkt)
+                                  peel_live_subset, pkt, truss_pkt)
+from repro_torch.core.prep import (PREPROCESS_SPANS, align_to_input,
+                                   order_and_build)
+from repro_torch.core.support import check_axis
 from repro_torch.core.triangle_list import _triangles_dev
 from repro_torch.device import resolve_device, synchronize
-from repro_torch.graphs.csr import (PREPROCESS_SPANS, CSRGraph, build_csr,
+from repro_torch.graphs.csr import (CSRGraph, build_csr,
                                     canonical_edges_with_rows,
-                                    check_edge_array, degeneracy_order,
-                                    edge_keys, relabel)
+                                    check_edge_array, edge_keys)
 from repro_torch.kernels import wedge_common
 from repro_torch.testing.chaos import fault_point
 
@@ -484,23 +485,11 @@ class IncrementalTruss:
                    compact_frac, compact_min, device) -> None:
         """Validate and store the handle's options (shared by both
         constructors)."""
-        if mode not in PEEL_MODES:
-            raise ValueError(f"mode must be one of {PEEL_MODES}, got {mode!r}")
-        if support_mode not in support_mod.SUPPORT_MODES:
-            raise ValueError(
-                f"support_mode must be one of {support_mod.SUPPORT_MODES}, "
-                f"got {support_mode!r}")
-        if table_mode not in support_mod.TABLE_MODES:
-            raise ValueError(
-                f"table_mode must be one of {support_mod.TABLE_MODES}, "
-                f"got {table_mode!r}")
-        if hier_mode not in HIER_MODES:
-            raise ValueError(
-                f"hier_mode must be one of {HIER_MODES}, got {hier_mode!r}")
-        if insert_mode not in INSERT_MODES:
-            raise ValueError(
-                f"insert_mode must be one of {INSERT_MODES}, "
-                f"got {insert_mode!r}")
+        check_axis("mode", mode, PEEL_MODES)
+        check_axis("support_mode", support_mode, support_mod.SUPPORT_MODES)
+        check_axis("table_mode", table_mode, support_mod.TABLE_MODES)
+        check_axis("hier_mode", hier_mode, HIER_MODES)
+        check_axis("insert_mode", insert_mode, INSERT_MODES)
         if chunk is not None and chunk < 1:
             raise ValueError("chunk must be positive")
         if not 0.0 <= local_frac <= 1.0:
@@ -628,9 +617,7 @@ class IncrementalTruss:
         serving cache.
         """
         mode = self.hier_mode if mode is None else mode
-        if mode not in HIER_MODES:
-            raise ValueError(
-                f"mode must be one of {HIER_MODES}, got {mode!r}")
+        check_axis("mode", mode, HIER_MODES)
         if mode != self.hier_mode:
             return TrussHierarchy(self.T, self.triangles, mode=mode,
                                   device=self.device)
@@ -694,9 +681,7 @@ class IncrementalTruss:
         """
         t0 = time.perf_counter()
         imode = self.insert_mode if insert_mode is None else insert_mode
-        if imode not in INSERT_MODES:
-            raise ValueError(
-                f"insert_mode must be one of {INSERT_MODES}, got {imode!r}")
+        check_axis("insert_mode", imode, INSERT_MODES)
         add = check_edge_array(add_edges if add_edges is not None
                                else np.zeros((0, 2), np.int64))
         rem = check_edge_array(remove_edges if remove_edges is not None
@@ -1116,19 +1101,15 @@ class IncrementalTruss:
                 self._commit(g, np.zeros(0, np.int64), np.zeros(0, np.int32),
                              _triangle_rows(g, self.device))
                 return
-            perm = degeneracy_order(E, self.n)
-            r_edges = relabel(E, perm)
-            gr = build_csr(r_edges, self.n)
+            # keys: each row of g.El in the relabelled id space
+            gr, keys = order_and_build(E, g.El[:, 0], g.El[:, 1], self.n,
+                                       reorder=True)
         t_prep = trace.seconds(recorded, PREPROCESS_SPANS)
         res = pkt(gr, chunk=self.chunk, mode=self.mode,
                   support_mode=self.support_mode, table_mode=self.table_mode,
                   compact_frac=self.compact_frac,
                   compact_min=self.compact_min, phase_timings=True,
                   device=self.device)
-        u = g.El[:, 0].astype(np.int64)
-        v = g.El[:, 1].astype(np.int64)
-        rl, rh = perm[u], perm[v]
-        keys = edge_keys(np.minimum(rl, rh), np.maximum(rl, rh), self.n)
         T = align_to_input(res.trussness, gr, None, self.n, keys=keys)
         S = align_to_input(res.support, gr, None, self.n, keys=keys)
         t0 = time.perf_counter()

@@ -37,9 +37,6 @@ from repro_torch import trace
 MAX_PACK_N = 3_037_000_499
 #: CSR layout bound: vertex ids live in int32 columns (Fig. 2 arrays).
 _MAX_N = np.iinfo(np.int32).max
-#: the spans of the host preprocessing helpers below (``repro_torch.trace``)
-PREPROCESS_SPANS = ("csr.canonical", "csr.order", "csr.relabel",
-                    "csr.build")
 
 
 def check_edge_array(edges) -> np.ndarray:
@@ -265,13 +262,8 @@ def build_csr(edges: np.ndarray, n: Optional[int] = None) -> CSRGraph:
         np.cumsum(counts, out=Es[1:])
 
         # Eo: first slot with neighbor > row vertex (adjacency sorted
-        # ascending).
-        rows = np.arange(n, dtype=np.int64)
-        Eo = Es[:-1] + np.array(
-            [np.searchsorted(dst[Es[u]:Es[u + 1]], u, side="right")
-             for u in rows],
-            dtype=np.int64,
-        ) if n < (1 << 15) else _eo_vectorized(Es, dst, n)
+        # ascending): the row's start plus its neighbors below it
+        Eo = Es[:-1] + np.bincount(src[dst < src], minlength=n)
 
         g = CSRGraph(
             n=n, m=m,
@@ -282,14 +274,6 @@ def build_csr(edges: np.ndarray, n: Optional[int] = None) -> CSRGraph:
             Eo=Eo.astype(np.int32),
         )
         return g
-
-
-def _eo_vectorized(Es: np.ndarray, dst: np.ndarray, n: int) -> np.ndarray:
-    """Vectorized Eo: count of neighbors < row vertex, offset by row start."""
-    row_of_slot = np.repeat(np.arange(n, dtype=np.int64), np.diff(Es))
-    less = dst < row_of_slot
-    cnt = np.bincount(row_of_slot[less], minlength=n)
-    return Es[:-1] + cnt
 
 
 def relabel(edges: np.ndarray, perm: np.ndarray) -> np.ndarray:
@@ -303,24 +287,6 @@ def relabel(edges: np.ndarray, perm: np.ndarray) -> np.ndarray:
         lo = np.minimum(e[:, 0], e[:, 1])
         hi = np.maximum(e[:, 0], e[:, 1])
         return np.stack([lo, hi], axis=1)
-
-
-def degeneracy_order(edges: np.ndarray, n: int) -> np.ndarray:
-    """Coreness-based vertex permutation: perm[v] = new id of vertex v.
-
-    Vertices sorted by (coreness, id). Matches the paper's preprocessing
-    ("doing a k-core decomposition and then reordering vertices").
-    """
-    from repro_torch.core.kcore import kcore_numpy  # local import to avoid cycle
-
-    with trace.span("csr.order", m=len(edges)):
-        g = build_csr(edges, n)
-        core = kcore_numpy(g)
-        # stable by id within coreness
-        order = np.lexsort((np.arange(n), core))
-        perm = np.empty(n, dtype=np.int64)
-        perm[order] = np.arange(n)
-        return perm
 
 
 def degree_order(edges: np.ndarray, n: int) -> np.ndarray:

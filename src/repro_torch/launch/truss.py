@@ -58,7 +58,7 @@ from repro_torch.core.pkt import PEEL_MODES
 from repro_torch.core.truss_inc import INSERT_MODES
 from repro_torch.core.support import SUPPORT_MODES, TABLE_MODES
 from repro_torch.device import DEFAULT_DEVICE, resolve_device
-from repro_torch.graphs.csr import build_csr, degeneracy_order, relabel
+from repro_torch.core.prep import order_and_build
 from repro_torch.graphs.datasets import named_graph
 from repro_torch.graphs.gen import erdos_renyi_edges
 from repro_torch.kernels.wedge_common import pow2_chunk
@@ -469,9 +469,8 @@ def main(argv=None) -> None:
     E = named_graph(args.graph)
     n = int(E.max()) + 1
     t0 = time.perf_counter()
-    if args.order == "kco":
-        E = relabel(E, degeneracy_order(E, n))
-    g = build_csr(E, n)
+    g, _ = order_and_build(E, E[:, 0], E[:, 1], n,
+                           reorder=args.order == "kco")
     t_build = time.perf_counter() - t0
     print(f"graph={args.graph} n={g.n} m={g.m} wedges={g.wedge_count():.3e} "
           f"build {t_build:.2f}s order={args.order} device={device}")

@@ -56,15 +56,15 @@ import numpy as np
 from repro_torch import trace
 from repro_torch.core import support as support_mod
 from repro_torch.core.hierarchy import HIER_MODES, TrussHierarchy
-from repro_torch.core.pkt import PEEL_MODES, align_to_input, pkt
+from repro_torch.core.pkt import PEEL_MODES, pkt
+from repro_torch.core.prep import align_to_input, order_and_build
 from repro_torch.core.ref import truss_numpy
+from repro_torch.core.support import check_axis
 from repro_torch.core.truss_inc import (INSERT_MODES, IncrementalTruss,
                                         UpdateStats)
 from repro_torch.device import resolve_device
-from repro_torch.graphs.csr import (CSRGraph, build_csr,
-                                    canonical_edges_with_rows,
-                                    degeneracy_order, edge_keys, relabel)
-from repro_torch.kernels import count_launches, wedge_common
+from repro_torch.graphs.csr import CSRGraph, canonical_edges_with_rows
+from repro_torch.kernels import count_launches
 from repro_torch.kernels.wedge_common import next_pow2 as _next_pow2
 from repro_torch.testing.chaos import fault_point
 
@@ -76,12 +76,7 @@ class SizeClass(NamedTuple):
 
     m_pad: int        # padded edge count (pow2)
     sup_pad: int      # padded support-table length (pow2)
-    peel_pad: int     # padded peel-table length (pow2, multiple of chunk)
-    chunk: int        # peel chunk size (pow2, <= peel_pad)
-    n_chunks: int     # peel_pad // chunk
-    iters: int        # binary-search iteration bound for 2*m_pad-length rows
-    sup_chunk: int    # support-kernel chunk size (pow2, <= sup_pad)
-    sup_n_chunks: int  # sup_pad // sup_chunk
+    peel_pad: int     # padded peel-table length (pow2)
     n_pad: int        # padded vertex count (pow2; 0 in table_mode="numpy")
 
 
@@ -284,21 +279,11 @@ class TrussEngine:
                  insert_mode: str = "batched", chunk: int | None = None,
                  reorder: bool = True, max_pending: int = 32,
                  max_edges: int = 1 << 22, device="cuda"):
-        if mode not in PEEL_MODES:
-            raise ValueError(f"mode must be one of {PEEL_MODES}, got {mode!r}")
-        if support_mode not in support_mod.SUPPORT_MODES:
-            raise ValueError(f"support_mode must be one of "
-                             f"{support_mod.SUPPORT_MODES}, "
-                             f"got {support_mode!r}")
-        if table_mode not in support_mod.TABLE_MODES:
-            raise ValueError(f"table_mode must be one of "
-                             f"{support_mod.TABLE_MODES}, got {table_mode!r}")
-        if hier_mode not in HIER_MODES:
-            raise ValueError(f"hier_mode must be one of {HIER_MODES}, "
-                             f"got {hier_mode!r}")
-        if insert_mode not in INSERT_MODES:
-            raise ValueError(f"insert_mode must be one of {INSERT_MODES}, "
-                             f"got {insert_mode!r}")
+        check_axis("mode", mode, PEEL_MODES)
+        check_axis("support_mode", support_mode, support_mod.SUPPORT_MODES)
+        check_axis("table_mode", table_mode, support_mod.TABLE_MODES)
+        check_axis("hier_mode", hier_mode, HIER_MODES)
+        check_axis("insert_mode", insert_mode, INSERT_MODES)
         if chunk is not None and chunk < 1:
             raise ValueError("chunk must be positive")
         if max_edges < 1:
@@ -359,19 +344,10 @@ class TrussEngine:
                     f"decompose it directly with core.pkt.truss_pkt, or "
                     f"raise max_edges")
 
-            if self.reorder:
-                perm = degeneracy_order(E, n)
-                r_edges = relabel(E, perm)
-            else:
-                perm = np.arange(n, dtype=np.int64)
-                r_edges = E
-            # key of each *input row* in the relabeled space (handles
-            # duplicate and endpoint-swapped rows: they map onto the same
+            # in_keys: each *input row*'s key in the relabeled space
+            # (duplicate and endpoint-swapped rows map onto the same
             # canonical edge)
-            rl, rh = perm[lo], perm[hi]
-            in_keys = edge_keys(np.minimum(rl, rh), np.maximum(rl, rh), n)
-
-            g = build_csr(r_edges, n)
+            g, in_keys = order_and_build(E, lo, hi, n, reorder=self.reorder)
             # tables never materialize on the host: bucket by their exact
             # entry counts (O(m) host math)
             sup_size = support_mod.support_table_size(g)
@@ -526,16 +502,10 @@ class TrussEngine:
     # ------------------------------------------------------------ internals --
     def _size_class(self, g: CSRGraph, sup_size: int,
                     peel_size: int) -> SizeClass:
-        m_pad = max(_MIN_M_PAD, _next_pow2(g.m))
-        sup_pad = _next_pow2(max(1, sup_size))
-        peel_pad = _next_pow2(max(1, peel_size))
-        chunk = wedge_common.pow2_chunk(peel_pad, self.chunk)
-        n_chunks = peel_pad // chunk
-        iters = int(np.ceil(np.log2(2 * m_pad + 1))) + 1
-        sup_chunk = wedge_common.pow2_chunk(sup_pad, self.chunk)
         n_pad = _next_pow2(g.n + 1) if self.table_mode == "device" else 0
-        return SizeClass(m_pad, sup_pad, peel_pad, chunk, n_chunks, iters,
-                         sup_chunk, sup_pad // sup_chunk, n_pad)
+        return SizeClass(max(_MIN_M_PAD, _next_pow2(g.m)),
+                         _next_pow2(max(1, sup_size)),
+                         _next_pow2(max(1, peel_size)), n_pad)
 
     def discard(self, ticket: int) -> None:
         """Drop a ticket without computing or collecting it (scheduler hook).
@@ -617,13 +587,8 @@ class TrussEngine:
         eff_mode = self.mode if mode is None else mode
         eff_support = self.support_mode if support_mode is None \
             else support_mode
-        if eff_mode not in PEEL_MODES:
-            raise ValueError(
-                f"mode must be one of {PEEL_MODES}, got {eff_mode!r}")
-        if eff_support not in support_mod.SUPPORT_MODES:
-            raise ValueError(
-                f"support_mode must be one of {support_mod.SUPPORT_MODES}, "
-                f"got {eff_support!r}")
+        check_axis("mode", eff_mode, PEEL_MODES)
+        check_axis("support_mode", eff_support, support_mod.SUPPORT_MODES)
         if not self._pending:
             return
         by_key: dict[SizeClass, list[_Pending]] = {}

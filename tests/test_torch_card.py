@@ -26,6 +26,7 @@ import pytest
 import torch
 
 from repro_torch import trace
+from repro_torch.core import prep
 from repro_torch.core import support as support_mod
 from repro_torch.core.ref import truss_numpy
 from repro_torch.graphs.csr import build_csr
@@ -266,7 +267,7 @@ def test_scale18_graphs_past_the_peel_table_ceiling(card, seed, peel_rows):
     path decomposes them through ``truss_pkt`` and ``TrussEngine.submit``,
     equal to the plain reference, the fused loop's grid at its cap."""
     E = rmat_edges(18, edge_factor=16, seed=seed)
-    g, _, _ = pkt_mod.preprocess(E)
+    g, _, _ = prep.preprocess(E)
     sup_rows = support_mod.support_table_size(g)
     assert support_mod.peel_table_size(g) == peel_rows
     assert 1 << (peel_rows - 1).bit_length() > support_mod._MAX_TABLE
@@ -302,11 +303,9 @@ def test_truss_pkt_preprocesses_on_the_card_from_its_threshold(card):
     ``DEVICE_PREP_MIN_ROWS`` of those rows take the card's path too, and a
     graph below the threshold takes the host path (``on="host"``); both
     answer as the plain reference."""
-    from repro_torch.core import device_prep
-
     E = rmat_edges(16, edge_factor=16, seed=5)
     small = rmat_edges(10, edge_factor=16, seed=5)
-    assert len(small) < pkt_mod.DEVICE_PREP_MIN_ROWS <= len(E)
+    assert len(small) < prep.DEVICE_PREP_MIN_ROWS <= len(E)
     rng = np.random.default_rng(6)
     order = rng.permutation(len(E))
     flip = rng.random(len(E)) < 0.5
@@ -314,15 +313,15 @@ def test_truss_pkt_preprocesses_on_the_card_from_its_threshold(card):
     trace.enable()
     try:
         got = pkt_mod.truss_pkt(rows, device=card)
-        got_edge = pkt_mod.truss_pkt(rows[:pkt_mod.DEVICE_PREP_MIN_ROWS],
+        got_edge = pkt_mod.truss_pkt(rows[:prep.DEVICE_PREP_MIN_ROWS],
                                      device=card)
         got_small = pkt_mod.truss_pkt(small, device=card)
         pre = [sp for sp in trace.spans() if sp.name == "pkt.preprocess"]
     finally:
         trace.disable()
         trace.clear()
-    g, n, keys = pkt_mod.preprocess(rows)
-    g2, n2, keys2 = device_prep.preprocess_device(rows, device=card)
+    g, n, keys = prep.preprocess(rows)
+    g2, n2, keys2 = prep.preprocess_device(rows, device=card)
     assert (g2.n, g2.m, n2) == (g.n, g.m, n)
     for f in ("Es", "N", "Eid", "El", "Eo"):
         a, b = getattr(g, f), getattr(g2, f)
@@ -333,7 +332,7 @@ def test_truss_pkt_preprocesses_on_the_card_from_its_threshold(card):
     ref = _plain_reference()
     assert np.array_equal(got, host)
     assert np.array_equal(got, ref.decompose(E, card).trussness[order])
-    edge = E[order[:pkt_mod.DEVICE_PREP_MIN_ROWS]]
+    edge = E[order[:prep.DEVICE_PREP_MIN_ROWS]]
     assert np.array_equal(got_edge, ref.decompose(edge, card).trussness)
     assert np.array_equal(got_small, ref.decompose(small, card).trussness)
     assert [sp.attrs["on"] for sp in pre] == ["cuda", "cuda", "host"]

@@ -13,6 +13,7 @@ import repro.graphs.csr as ref_csr
 import repro.graphs.datasets as ref_datasets
 import repro.graphs.gen as ref_gen
 import repro_torch.core.kcore as port_kcore
+import repro_torch.core.prep as port_prep
 import repro_torch.graphs.csr as port_csr
 import repro_torch.graphs.datasets as port_datasets
 import repro_torch.graphs.gen as port_gen
@@ -42,9 +43,11 @@ GRAPHS = {
     "noisy": _noisy_raw(3),
     "rmat": ref_gen.rmat_edges(7, edge_factor=6, seed=4),
     "ring_of_cliques": ref_gen.ring_of_cliques_edges(5, 6),
-    # n >= 2^15 takes build_csr's vectorized Eo branch
+    # n >= 2^15: the reference's build_csr takes its vectorized Eo branch
     "wide_ids": np.array([[0, 40000], [40000, 40001], [0, 40001],
                           [5, 39999]], np.int64),
+    "rmat_wide": np.concatenate([ref_gen.rmat_edges(7, edge_factor=6, seed=5),
+                                 [[3, 40000]]]).astype(np.int64),
 }
 
 
@@ -73,9 +76,10 @@ def test_csr_pipeline_matches_reference(name):
     assert np.array_equal(ref_csr.edge_keys(lo, hi, n),
                           port_csr.edge_keys(lo, hi, n))
     assert np.array_equal(ref_kcore.kcore_numpy(gr), port_kcore.kcore_numpy(gp))
-    for order in ("degeneracy_order", "degree_order"):
+    for order, port_home in (("degeneracy_order", port_prep),
+                             ("degree_order", port_csr)):
         perm_r = getattr(ref_csr, order)(E, n)
-        perm_p = getattr(port_csr, order)(E, n)
+        perm_p = getattr(port_home, order)(E, n)
         assert np.array_equal(perm_r, perm_p), order
         assert np.array_equal(ref_csr.relabel(E, perm_r),
                               port_csr.relabel(E, perm_p))

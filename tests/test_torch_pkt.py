@@ -24,6 +24,7 @@ from repro_torch.graphs.csr import build_csr as port_build
 ref_pkt = importlib.import_module("repro.core.pkt")
 ref_csr = importlib.import_module("repro.graphs.csr")
 port_pkt = importlib.import_module("repro_torch.core.pkt")
+port_prep = importlib.import_module("repro_torch.core.prep")
 
 
 def _er(n, p, seed):
@@ -301,7 +302,7 @@ def test_kernel_path_accepts_past_the_peel_table_ceiling(entry, monkeypatch):
     E = GRAPHS["rmat"]
     rows, order = _shuffled_rows(E, 11)
     port_support = importlib.import_module("repro_torch.core.support")
-    g, _, _ = port_pkt.preprocess(rows)
+    g, _, _ = port_prep.preprocess(rows)
     sup_pad = 1 << (port_support.support_table_size(g) - 1).bit_length()
     peel_pad = 1 << (port_support.peel_table_size(g) - 1).bit_length()
     assert peel_pad > sup_pad
@@ -417,17 +418,15 @@ def _ref_preprocess(rows, reorder):
 @pytest.mark.parametrize("reorder", [True, False])
 @pytest.mark.parametrize("name", sorted(PREP_ROWS))
 def test_device_preprocess_equals_host(name, reorder):
-    """``device_prep.preprocess_device`` (here on the CPU) equals the JAX
+    """``prep.preprocess_device`` (here on the CPU) equals the JAX
     package's preprocessing field for field, row keys included, and
     ``align_device`` equals its ``align_to_input`` on them."""
     import torch
 
-    from repro_torch.core import device_prep
-
     rows = PREP_ROWS[name]
     g, n, keys = _ref_preprocess(rows, reorder)
-    g2, n2, keys2 = device_prep.preprocess_device(rows, reorder=reorder,
-                                                  device="cpu")
+    g2, n2, keys2 = port_prep.preprocess_device(rows, reorder=reorder,
+                                                device="cpu")
     assert (g2.n, g2.m, n2) == (g.n, g.m, n)
     for f in ("Es", "N", "Eid", "El", "Eo"):
         a, b = getattr(g, f), getattr(g2, f)
@@ -437,7 +436,7 @@ def test_device_preprocess_equals_host(name, reorder):
     assert got_keys.dtype == keys.dtype and np.array_equal(got_keys, keys)
     truss = np.random.default_rng(3).integers(2, 9, g.m).astype(np.int32)
     want = ref_pkt.align_to_input(truss, g, None, n, keys=keys)
-    got = port_pkt.align_device(truss, g2, n2, keys2, torch.device("cpu"))
+    got = port_prep.align_device(truss, g2, n2, keys2, torch.device("cpu"))
     assert got.dtype == want.dtype and np.array_equal(got, want)
 
 
@@ -446,8 +445,6 @@ def test_device_preprocess_equals_host(name, reorder):
 def test_device_preprocess_rejects_as_host(name):
     """The rows the JAX package's ``check_edge_array`` rejects, with its
     messages."""
-    from repro_torch.core import device_prep
-
     bad = {"float_dtype": np.array([[0.0, 1.0]]),
            "negative_id": np.array([[0, 1], [4, -2], [-1, 2]], np.int64),
            "self_loop": np.array([[0, 1], [3, 3]], np.int64),
@@ -456,7 +453,7 @@ def test_device_preprocess_rejects_as_host(name):
     with pytest.raises(ValueError) as ref:
         ref_csr.check_edge_array(bad)
     with pytest.raises(ValueError) as dev:
-        device_prep.preprocess_device(bad, device="cpu")
+        port_prep.preprocess_device(bad, device="cpu")
     assert str(dev.value) == str(ref.value)
 
 
@@ -465,19 +462,17 @@ def test_align_device_rejects_missing_edges():
     ``align_to_input`` error, and the keys present align as there."""
     import torch
 
-    from repro_torch.core import device_prep
-
     g, n, keys = _ref_preprocess(GRAPHS["er"], True)
-    g2, n2, keys2 = device_prep.preprocess_device(GRAPHS["er"], device="cpu")
+    g2, n2, keys2 = port_prep.preprocess_device(GRAPHS["er"], device="cpu")
     truss = np.random.default_rng(4).integers(2, 9, g.m).astype(np.int32)
     assert np.array_equal(
-        port_pkt.align_device(truss, g2, n2, keys2, torch.device("cpu")),
+        port_prep.align_device(truss, g2, n2, keys2, torch.device("cpu")),
         ref_pkt.align_to_input(truss, g, None, n, keys=keys))
     missing = np.concatenate([keys, [n * n - 1, 10 ** 9]])
     with pytest.raises(ValueError) as ref:
         ref_pkt.align_to_input(truss, g, None, n, keys=missing)
     with pytest.raises(ValueError) as dev:
-        port_pkt.align_device(truss, g2, n2, torch.from_numpy(missing),
-                              torch.device("cpu"))
+        port_prep.align_device(truss, g2, n2, torch.from_numpy(missing),
+                               torch.device("cpu"))
     assert "not present" in str(dev.value)
     assert str(dev.value) == str(ref.value)

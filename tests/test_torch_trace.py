@@ -266,11 +266,12 @@ def test_profiling_flag_follows_the_profiler():
     assert [sp.name for sp in trace.spans()] == ["t.inside"]
 
 
-def test_device_preprocess_span_carries_its_path_and_sublevels():
-    """``device_prep.preprocess_device`` is one ``pkt.preprocess`` span with
-    the device's type and the k-core's sub-levels (as many as
-    ``kcore.peel_cores`` runs), its three steps inside."""
-    from repro_torch.core import device_prep
+def test_device_preprocess_span_carries_its_path_and_sublevels(monkeypatch):
+    """``prep.prepare`` on the device path (here the CPU, as ``on_device``
+    would choose a card) is one ``pkt.preprocess`` span with the device's
+    type and the k-core's sub-levels (as many as ``kcore.peel_cores``
+    runs), ``preprocess_device``'s three steps inside."""
+    from repro_torch.core import prep
     from repro_torch.core.kcore import peel_cores
 
     E = rmat_edges(8, 8, seed=4)
@@ -279,8 +280,9 @@ def test_device_preprocess_span_carries_its_path_and_sublevels():
     rows = torch.repeat_interleave(torch.arange(g.n, dtype=torch.int32),
                                    deg.to(torch.int64))
     _, subs = peel_cores(torch.tensor(g.N), rows, deg)
+    monkeypatch.setattr(prep, "on_device", lambda rows, device: True)
     trace.enable()
-    device_prep.preprocess_device(E, device="cpu")
+    prep.prepare(E, device=torch.device("cpu"))
     spans = trace.spans()
     (pre,) = [sp for sp in spans if sp.name == "pkt.preprocess"]
     assert pre.parent is None
@@ -299,7 +301,8 @@ def test_one_shot_spans_nest_and_carry_their_counts():
     peel rows and the work list's size, each ``pkt.loop`` the fused launch's
     grid (0: the CPU's host loop)."""
     from repro_torch.core import support as support_mod
-    from repro_torch.core.pkt import preprocess, truss_pkt
+    from repro_torch.core.pkt import truss_pkt
+    from repro_torch.core.prep import preprocess
     from repro_torch.kernels import peel as kpeel
 
     E = rmat_edges(8, 8, seed=4)
