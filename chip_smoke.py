@@ -656,7 +656,7 @@ def check_k2(g, dev, S0, mods) -> tuple:
               processed=processed)
     cases = [k2_case("first sub-level", st, mods)]
     # a middle level: peel until half the edges are gone (level boundary)
-    S_mid, p_mid, _, _ = pkt_mod._peel_loop(
+    S_mid, p_mid, _, _, _ = pkt_mod._peel_loop(
         N, Eid, S_ext, processed, csr, m=m, chunk=None, n_chunks=None,
         iters=iters, mode="kernel", stop_live=m // 2)
     cases.append(k2_case("middle level", dict(st, S_ext=S_mid,
@@ -672,7 +672,7 @@ def check_k2(g, dev, S0, mods) -> tuple:
     # after a compaction: peel to the default compaction point, then gather
     # the survivors into a compacted subproblem as the segmented peel does
     target = int(pkt_mod._COMPACT_FRAC * m)
-    S_c, p_c, _, _ = pkt_mod._peel_loop(
+    S_c, p_c, _, _, _ = pkt_mod._peel_loop(
         N, Eid, S_mid, p_mid, csr, m=m, chunk=None, n_chunks=None,
         iters=iters, mode="kernel", stop_live=target)
     live_idx = np.nonzero(~p_c[:m].cpu().numpy())[0]

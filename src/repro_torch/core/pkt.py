@@ -57,6 +57,7 @@ import numpy as np
 import torch
 
 from repro_torch import trace
+from repro_torch.core import prep
 from repro_torch.core import support as support_mod
 # ``preprocess`` and ``align_to_input`` are imported by name from here too
 from repro_torch.core.prep import (align, align_to_input,  # noqa: F401
@@ -262,12 +263,18 @@ def prepare_peel_csr(g: CSRGraph, *, m_out: int | None = None,
     device = resolve_device(device)
     m_out = g.m if m_out is None else m_out
     size = support_mod.peel_table_size(g)
-    work_cap = peel_kernel.work_capacity(g.m, size)
+    work_cap = _work_capacity(g.m, size)
+    u, v, Es = _peel_operands(g, m_out, device)
+    return PeelCSR(u=u, v=v, Es=Es, work_cap=work_cap, peel_rows=size)
+
+
+def _work_capacity(m: int, peel_rows: int) -> int:
+    """``peel_kernel.work_capacity``, refused past the int32 layout."""
+    work_cap = peel_kernel.work_capacity(m, peel_rows)
     if work_cap > np.iinfo(np.int32).max:
         raise ValueError(f"peel work list of {work_cap} items exceeds the "
                          f"int32 layout")
-    u, v, Es = _peel_operands(g, m_out, device)
-    return PeelCSR(u=u, v=v, Es=Es, work_cap=work_cap, peel_rows=size)
+    return work_cap
 
 
 def _active_chunk_mask(inCurr, tabs: PeelTables, m: int, n_chunks: int):
@@ -326,8 +333,9 @@ def _peel_loop(N, Eid, S_ext0, processed0, tabs, *, m: int,
 
     ``S_ext0``/``processed0`` define which slots are live: slot m must be the
     processed sentinel, and callers may pre-mark extra padding slots as
-    processed.  Returns (S_ext, processed, levels, sublevels) — the full
-    extended state, so segmented callers can resume.
+    processed.  Returns (S_ext, processed, levels, sublevels, live) — the
+    full extended state, so segmented callers can resume, and the number of
+    its unprocessed slots, which the loop knows without another read.
 
     ``pinned`` (optional (m+1,) bool) marks *schedule* edges: they enter the
     frontier and process their triangles at exactly their initial support
@@ -355,7 +363,7 @@ def _peel_loop(N, Eid, S_ext0, processed0, tabs, *, m: int,
         if span is not None:
             span.attrs.update(host_reads=res.host_reads, wait_ns=res.wait_ns,
                               blocks=res.blocks)
-        return S_ext, processed, res.levels, res.sublevels
+        return S_ext, processed, res.levels, res.sublevels, res.live
     todo = (m + 1) - int(processed.sum())
     levels = subs = 0
     while todo > stop_live:
@@ -378,7 +386,7 @@ def _peel_loop(N, Eid, S_ext0, processed0, tabs, *, m: int,
             if not n_front:
                 break
         todo = (m + 1) - n_done
-    return S_ext, processed, levels, subs
+    return S_ext, processed, levels, subs, todo
 
 
 # --- live-edge compaction (DESIGN.md §10) -----------------------------------
@@ -389,7 +397,10 @@ def _peel_loop(N, Eid, S_ext0, processed0, tabs, *, m: int,
 # at the next pow2 size, and the (S, processed, pinned) state remapped.  The
 # relabeling is order-preserving, so the lowest-edge-id tie-break picks the
 # same winners and the continuation is bitwise identical: levels,
-# sub-levels and the fixed point all match the uncompacted run.
+# sub-levels and the fixed point all match the uncompacted run.  The kernel
+# executor rebuilds on a CUDA device from ``prep.DEVICE_COMPACT_MIN_ROWS``
+# survivors (``_make_subproblem_device``, sorts and scans); every other
+# rebuild runs on the host (``_make_subproblem``).
 
 #: default compaction policy: compact when the live fraction drops below
 #: ``_COMPACT_FRAC``, but never bother below ``_COMPACT_MIN`` live edges
@@ -465,6 +476,102 @@ def _make_subproblem(El_rows: np.ndarray, ids: np.ndarray,
         pinned=pinned, pinned_np=pinned_np, El=g_sub.El, ids=ids_pad)
 
 
+def _pad(t: torch.Tensor, size: int, fill) -> torch.Tensor:
+    """``t`` followed by ``fill`` up to ``size`` entries, its dtype kept
+    (``wedge_common.pad1`` on the device)."""
+    out = t.new_full((size,), fill)
+    out[:t.shape[0]] = t
+    return out
+
+
+def _slots(problem: dict, device: torch.device) -> torch.Tensor:
+    """``problem``'s output slots (``ids``) as an int64 tensor on
+    ``device``: uploaded where a host build made them, ``arange(m)`` for
+    the whole graph's problem (``ids=None``: slot ``e`` is edge ``e``)."""
+    ids = problem["ids"]
+    if ids is None:
+        return torch.arange(problem["m"], device=device)
+    return torch.as_tensor(ids, device=device)
+
+
+def _make_subproblem_device(problem: dict, S_ext: torch.Tensor,
+                            processed: torch.Tensor) -> dict:
+    """``_make_subproblem`` for the kernel executor, on the device: the
+    survivors of ``problem``'s segment (``S_ext``/``processed`` at its end)
+    in a fresh pow2-bucketed problem, equal to the host build field for
+    field, built without a download.
+
+    The survivors' rows come from the segment's ``u``/``v`` in ascending
+    edge order, with their S, output slots and pinned marks.  A vertex's new
+    id is its rank among the survivors' endpoints (a mark and a running
+    sum), which preserves order, so their keys stay sorted and the
+    tie-break is unchanged; ``prep.csr_arrays`` builds the sub-CSR.  The
+    last of its reads, queued after every other step, is the peel rows
+    that size the work list (with whether a survivor is pinned), so a span
+    around the call ends after its device work.
+    """
+    m, tabs = problem["m"], problem["tabs"]
+    live = torch.nonzero(~processed[:m])[:, 0]
+    k = live.shape[0]
+    u = tabs.u[live].to(torch.int64)
+    v = tabs.v[live].to(torch.int64)
+    # every vertex id of the segment lies below its offsets' length
+    seen = torch.zeros(tabs.Es.shape[0], dtype=torch.int32,
+                       device=S_ext.device)
+    seen[u] = 1
+    seen[v] = 1
+    rank = torch.cumsum(seen, 0) - 1
+    n = int(rank[-1]) + 1
+    lo, hi = rank[u], rank[v]
+    t = prep.csr_arrays(lo, hi, n)
+    deg = (t["Es"][1:] - t["Es"][:-1]).to(torch.int64)
+    m_pad = max(_MIN_M_PAD, wedge_common.next_pow2(k))
+    # the offsets pad as ``_peel_operands`` pads them: only in a bucket
+    # larger than the edges
+    n_es = n + 1 if m_pad == k else wedge_common.next_pow2(n + 1)
+    processed0 = torch.ones(m_pad + 1, dtype=torch.bool, device=S_ext.device)
+    processed0[:k] = False
+    pinned = problem["pinned"]
+    reads = [torch.minimum(deg[lo], deg[hi]).sum()]
+    if pinned is not None:
+        pinned = _pad(pinned[live], m_pad + 1, False)
+        reads.append(pinned.any().to(torch.int64))
+    sub = dict(
+        N=_pad(t["N"], 2 * m_pad, int(wedge_common.PAD_N)),
+        Eid=_pad(t["Eid"], 2 * m_pad, m_pad), chunk=None, n_chunks=None,
+        iters=int(np.ceil(np.log2(2 * m_pad + 1))) + 1, m=m_pad, live=k,
+        S_ext0=_pad(S_ext[live], m_pad + 1, _SENTINEL_S),
+        processed0=processed0, pinned_np=None, El=None,
+        ids=_pad(_slots(problem, S_ext.device)[live], m_pad, -1))
+    u_pad, v_pad, Es = (_pad(t["u"], m_pad, 0), _pad(t["v"], m_pad, 0),
+                        _pad(t["Es"], n_es, 2 * k))
+    peel_rows, *pinned_any = torch.stack(reads).tolist()
+    sub["tabs"] = PeelCSR(u=u_pad, v=v_pad, Es=Es,
+                          work_cap=_work_capacity(k, peel_rows),
+                          peel_rows=peel_rows)
+    sub["pinned"] = pinned if any(pinned_any) else None
+    return sub
+
+
+def _host_rows(problem: dict, S_ext, processed, host) -> tuple:
+    """The survivors' ``(rows, ids, S, pinned)`` on the host for
+    ``_make_subproblem``: picked from ``host``, the readback's ``(S,
+    processed)``, where there is one; else, for a problem built on the
+    device, gathered there and downloaded."""
+    if host is None:
+        live = torch.nonzero(~processed[:problem["m"]])[:, 0]
+        tabs, pinned = problem["tabs"], problem["pinned"]
+        rows = torch.stack([tabs.u[live], tabs.v[live]], dim=1)
+        return (rows.cpu().numpy(), problem["ids"][live].cpu().numpy(),
+                S_ext[live].cpu().numpy(),
+                None if pinned is None else pinned[live].cpu().numpy())
+    S_np, proc_np = host
+    live = np.nonzero(~proc_np)[0]
+    ids, pinned = problem["ids"], problem["pinned_np"]
+    return (problem["El"][live], live if ids is None else ids[live],
+            S_np[live], None if pinned is None else pinned[live])
+
+
 def _segmented_peel(problem: dict, out: np.ndarray, *, mode: str,
                     table_mode: str, compact_frac: float | None,
                     compact_min: int, chunk_req: int | None,
@@ -475,12 +582,21 @@ def _segmented_peel(problem: dict, out: np.ndarray, *, mode: str,
     Each segment peels until ≤ ``compact_frac · m`` edges remain live (or to
     completion when compaction is off / the problem is below
     ``compact_min``); finished edges scatter their final S into ``out`` (at
-    ``problem['ids']`` slots) and survivors are re-bucketed via
-    ``_make_subproblem``.  Returns (levels, sublevels, compactions).
-    Each segment is a ``pkt.loop`` span and a ``pkt.readback`` span, each
-    compaction a ``pkt.compact`` span, synced before it ends when ``sync``.
+    ``problem['ids']`` slots) and survivors are re-bucketed.  Returns
+    (levels, sublevels, compactions).
+
+    The kernel executor rebuilds on the device (``_make_subproblem_device``)
+    where ``prep.compacts_on_device`` says for the survivor count; there,
+    and after it, the state stays on the device and the final S collect in
+    a device copy of ``out``, downloaded once when device-built problems
+    end.  Every other rebuild downloads the state and runs
+    ``_make_subproblem``.  Each segment is a ``pkt.loop`` span and a
+    ``pkt.readback`` span, each compaction a ``pkt.compact`` span (``m``
+    the survivors, ``on`` "host" or the device's type), synced before it
+    ends when ``sync``.
     """
     levels = subs = compactions = 0
+    finals = None   # the output on the device, -1 where no S is final yet
     while True:
         m = problem["m"]
         n_live = problem["live"]
@@ -490,38 +606,65 @@ def _segmented_peel(problem: dict, out: np.ndarray, *, mode: str,
             # least one level before the loop considers compacting again
             live_target = min(int(compact_frac * m), n_live - 1)
         with trace.span("pkt.loop", m=m) as loop:
-            S_ext, processed, lv, sb = _peel_loop(
+            S_ext, processed, lv, sb, left = _peel_loop(
                 problem["N"], problem["Eid"], problem["S_ext0"],
                 problem["processed0"], problem["tabs"], m=m,
                 chunk=problem["chunk"], n_chunks=problem["n_chunks"],
                 iters=problem["iters"], mode=mode, pinned=problem["pinned"],
                 stop_live=live_target, span=loop)
             trace.set(levels=lv, sublevels=sb)
-        with trace.span("pkt.readback"):
-            S_np = S_ext[:m].cpu().numpy()
-            proc_np = processed[:m].cpu().numpy()
         levels += lv
         subs += sb
-        ids = problem["ids"]
-        live = ~proc_np
-        dead = proc_np & (ids >= 0)
-        out[ids[dead]] = S_np[dead]
-        if not live.any():
+        on_dev = (mode == "kernel" and left > 0
+                  and prep.compacts_on_device(left, device))
+        host = None
+        with trace.span("pkt.readback"):
+            if on_dev or problem["El"] is None:
+                if finals is None:
+                    finals = torch.full(out.shape, -1, dtype=torch.int32,
+                                        device=device)
+                # a problem's first ``live`` slots are its real edges
+                real = problem["live"]
+                ids = _slots(problem, device)[:real]
+                finals[ids] = torch.where(processed[:real], S_ext[:real],
+                                          finals[ids])
+            else:
+                finals = _download(finals, out)
+                S_np = S_ext[:m].cpu().numpy()
+                proc_np = processed[:m].cpu().numpy()
+                host = (S_np, proc_np)
+                ids = problem["ids"]
+                ids = np.arange(m) if ids is None else ids
+                dead = proc_np & (ids >= 0)
+                out[ids[dead]] = S_np[dead]
+        if not left:
+            _download(finals, out)
             return levels, subs, compactions
         # ≤ live_target survivors: gather them into a compacted edge space
         compactions += 1
-        live_idx = np.nonzero(live)[0]
-        pin_np = problem["pinned_np"]
-        with trace.span("pkt.compact", m=len(live_idx)):
-            problem = _make_subproblem(
-                problem["El"][live_idx], ids[live_idx], S_np[live_idx],
-                None if pin_np is None else pin_np[:m][live_idx],
-                chunk_req=chunk_req, table_mode=table_mode, mode=mode,
-                device=device)
+        with trace.span("pkt.compact", m=left,
+                        on=device.type if on_dev else "host"):
+            if on_dev:
+                problem = _make_subproblem_device(problem, S_ext, processed)
+            else:
+                problem = _make_subproblem(
+                    *_host_rows(problem, S_ext, processed, host),
+                    chunk_req=chunk_req, table_mode=table_mode, mode=mode,
+                    device=device)
             if sync:
                 synchronize(device)
         if problem["live"] >= n_live:
             raise AssertionError("compaction must strictly shrink the problem")
+
+
+def _download(finals, out: np.ndarray) -> None:
+    """Copy the final S that the device copy ``finals`` holds (or None)
+    into ``out``; returns None, the device copy's state after it."""
+    if finals is not None:
+        fin = finals.cpu().numpy()
+        done = fin >= 0
+        out[done] = fin[done]
+    return None
 
 
 def peel_live_subset(El: np.ndarray, live_ids: np.ndarray,
@@ -689,7 +832,7 @@ def _pkt(g: CSRGraph, *, chunk, mode, support_mode, table_mode,
         N=dev["N"], Eid=dev["Eid"], tabs=tabs, chunk=chunk_eff,
         n_chunks=n_chunks, iters=support_mod._search_iters(g), m=m, live=m,
         S_ext0=S_ext0, processed0=processed0, pinned=None, pinned_np=None,
-        El=g.El, ids=np.arange(m, dtype=np.int64))
+        El=g.El, ids=None)
     S_out = np.zeros(m, np.int32)
     levels, subs, compactions = _segmented_peel(
         problem, S_out, mode=mode, table_mode=table_mode,

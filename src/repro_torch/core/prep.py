@@ -22,7 +22,9 @@ It is written twice, with one result, bit for bit:
 
 ``prepare`` chooses between the two (``on_device``), and ``align`` maps an
 answer per ``g.El`` row back to the input rows with whichever row keys it
-got.
+got.  The device path's CSR build (``csr_arrays``) also rebuilds the
+survivors of a live-edge compaction (``core/pkt.py``), on a device where
+``compacts_on_device`` says.
 """
 
 from __future__ import annotations
@@ -48,6 +50,14 @@ PREPROCESS_SPANS = ("csr.canonical", "csr.order", "csr.relabel",
 #: scale-10 graph (10,505 rows) and the card on every graph from 2^14 rows
 #: measured (PERF.md, section 6)
 DEVICE_PREP_MIN_ROWS = 1 << 14
+
+#: survivors from which the kernel executor's live-edge compaction
+#: (``core/pkt.py: _segmented_peel``) rebuilds on a CUDA device.  On an H100,
+#: rebuilding the survivors of R-MAT graphs peeled to a quarter of their
+#: edges, the host won at 1,184 survivors, the two were even at 2,267, and
+#: the card won from 5,366 on, by 1.7x there and 4x at 11,753 (PERF.md,
+#: section 6)
+DEVICE_COMPACT_MIN_ROWS = 1 << 12
 
 
 # --- the host path -----------------------------------------------------------
@@ -152,30 +162,37 @@ def _coreness_perm(E_lo, E_hi, n: int):
     return perm, subs
 
 
-def _csr(K: torch.Tensor, n: int, device: torch.device) -> CSRGraph:
-    """The CSR graph of the sorted canonical keys ``K`` (on ``device``),
-    downloaded, its cache of ``device`` arrays seeded with the tensors.
-
-    ``El`` in key order, so edge ids follow it as in ``build_csr``; ``N``
-    and ``Eid`` the symmetrized ``(src, dst)`` keys sorted with their edge
-    ids; ``Es`` the degrees' running sum; ``Eo`` each row's start plus its
-    neighbours below it, which are the edges it ends (``v``)."""
-    m = K.shape[0]
-    u, v = K // n, K % n
+def csr_arrays(u: torch.Tensor, v: torch.Tensor, n: int) -> dict:
+    """``N``, ``Eid``, ``Es``, ``u`` and ``v`` (int32, on the endpoints'
+    device) of the canonical edges ``(u[e], v[e])`` (int64), given in key
+    order, so edge ids follow it as in ``build_csr``: ``N`` and ``Eid`` the
+    symmetrized ``(src, dst)`` keys sorted with their edge ids, ``Es`` the
+    degrees' running sum.  Nothing is downloaded."""
+    m = u.shape[0]
     src = torch.cat([u, v])
     dst = torch.cat([v, u])
     order = torch.sort(edge_keys(src, dst, n)).indices
-    ids = torch.arange(m, dtype=torch.int32, device=K.device)
+    ids = torch.arange(m, dtype=torch.int32, device=u.device)
     Es = torch.cumsum(torch.bincount(src, minlength=n + 1), 0)
     Es = torch.cat([Es.new_zeros(1), Es[:-1]])
-    t = dict(
-        N=dst[order].to(torch.int32), Eid=torch.cat([ids, ids])[order],
-        Es=Es.to(torch.int32),
-        Eo=(Es[:-1] + torch.bincount(v, minlength=n)).to(torch.int32),
-        El=torch.stack([u, v], dim=1).to(torch.int32),
-        u=u.to(torch.int32), v=v.to(torch.int32))
-    g = CSRGraph(n=n, m=m, **{f: t[f].cpu().numpy()
-                              for f in ("Es", "N", "Eid", "El", "Eo")})
+    return dict(N=dst[order].to(torch.int32),
+                Eid=torch.cat([ids, ids])[order], Es=Es.to(torch.int32),
+                u=u.to(torch.int32), v=v.to(torch.int32))
+
+
+def _csr(K: torch.Tensor, n: int, device: torch.device) -> CSRGraph:
+    """The CSR graph of the sorted canonical keys ``K`` (on ``device``),
+    downloaded, its cache of ``device`` arrays seeded with the tensors:
+    ``csr_arrays``, ``El``, and ``Eo``, each row's start plus its
+    neighbours below it, which are the edges it ends (``v``)."""
+    u, v = K // n, K % n
+    t = csr_arrays(u, v, n)
+    t.update(Eo=(t["Es"][:-1] + torch.bincount(v, minlength=n)).to(
+                 torch.int32),
+             El=torch.stack([t["u"], t["v"]], dim=1))
+    g = CSRGraph(n=n, m=K.shape[0], **{f: t[f].cpu().numpy()
+                                       for f in ("Es", "N", "Eid", "El",
+                                                 "Eo")})
     g._dev[str(device)] = t
     return g
 
@@ -225,6 +242,13 @@ def on_device(rows: int, device: torch.device) -> bool:
     ``device``: on a CUDA device from ``DEVICE_PREP_MIN_ROWS`` rows, else
     on the host."""
     return device.type == "cuda" and rows >= DEVICE_PREP_MIN_ROWS
+
+
+def compacts_on_device(survivors: int, device: torch.device) -> bool:
+    """Whether the live-edge compaction rebuilds ``survivors`` edges on
+    ``device``: on a CUDA device from ``DEVICE_COMPACT_MIN_ROWS``, else on
+    the host."""
+    return device.type == "cuda" and survivors >= DEVICE_COMPACT_MIN_ROWS
 
 
 def prepare(edges, *, reorder: bool = True, device: torch.device):

@@ -112,6 +112,7 @@ class LoopResult(NamedTuple):
     host_reads: int   # blocking reads of the device's counts
     wait_ns: int      # host ns blocked in those reads
     blocks: int       # the fused launch's grid; 0 where the host drives it
+    live: int         # slots left unprocessed when the segment ended
 
 
 def work_capacity(m: int, table_size: int) -> int:
@@ -466,11 +467,11 @@ def peel_loop(S_ext, processed, u, v, Es, N, Eid, pinned=None, *, m: int,
             buf.work_j, buf.counts, buf.ctl, m, WORK_SLICE, stop_live)
     LOOP_COUNTS.launched()
     t0 = time.perf_counter_ns()
-    levels, subs, _, status, blocks = buf.ctl[4:].tolist()
+    levels, subs, n_done, status, blocks = buf.ctl[4:].tolist()
     wait = time.perf_counter_ns() - t0
     if status != 0:
         _overrun(subs, m)
-    return LoopResult(levels, subs, 1, wait, blocks)
+    return LoopResult(levels, subs, 1, wait, blocks, m + 1 - n_done)
 
 
 def _overrun(subs: int, m: int):
@@ -525,7 +526,7 @@ def host_loop(S_ext, processed, u, v, Es, N, Eid, pinned=None, *, m: int,
             if not n_front:
                 break
         todo = (m + 1) - n_done
-    return LoopResult(levels, subs, subs, wait, 0)
+    return LoopResult(levels, subs, subs, wait, 0, todo)
 
 
 def peel_loop_ref(S_ext, processed, u, v, Es, N, Eid, pinned=None, *,

@@ -210,6 +210,50 @@ def test_region_peel_with_pinned_edges(card):
         assert np.array_equal(got, want)
 
 
+def test_compactions_built_on_the_card(card):
+    """A scale-14 R-MAT graph compacted at half its live edges until fewer
+    than 2^15 stay live: its three compactions keep 2^14 survivors or
+    more, above ``DEVICE_COMPACT_MIN_ROWS``, so each is built on the card
+    (``pkt.compact`` ``on="cuda"``), and ``pkt`` equals the CPU run
+    bitwise, one fused loop a segment and nothing run plain.  A region
+    peel of two thirds of its edges, a quarter of them pinned, equals the
+    CPU run too; its compactions are built on the card from
+    ``DEVICE_COMPACT_MIN_ROWS`` survivors and on the host below."""
+    g = build_csr(GRAPHS["rmat14"]())
+    kw = dict(compact_frac=0.5, compact_min=1 << 15)
+    rng = np.random.default_rng(9)
+    live = np.sort(rng.choice(g.m, size=2 * g.m // 3, replace=False))
+    pinned = rng.random(live.shape[0]) < 0.25
+    trace.enable()
+    try:
+        with count_launches() as counted:
+            got = pkt_mod.pkt(g, device=card, **kw)
+        whole = [sp for sp in trace.spans() if sp.name == "pkt.compact"]
+        trace.clear()
+        region = pkt_mod.peel_live_subset(g.El, live, got.support[live],
+                                          pinned, device=card, **kw)
+        subset = [sp for sp in trace.spans() if sp.name == "pkt.compact"]
+    finally:
+        trace.disable()
+        trace.clear()
+    want = pkt_mod.pkt(g, device="cpu", **kw)
+    assert np.array_equal(got.trussness, want.trussness)
+    assert np.array_equal(got.support, want.support)
+    assert (got.levels, got.sublevels, got.compactions) == \
+        (want.levels, want.sublevels, want.compactions)
+    assert len(whole) == got.compactions >= 3
+    assert all(sp.attrs["m"] >= prep.DEVICE_COMPACT_MIN_ROWS for sp in whole)
+    assert [sp.attrs["on"] for sp in whole] == ["cuda"] * len(whole)
+    assert counted["loop"] == got.compactions + 1
+    assert counted["plain"] == counted["peel"] == counted["update"] == 0
+    assert np.array_equal(region, pkt_mod.peel_live_subset(
+        g.El, live, got.support[live], pinned, device="cpu", **kw))
+    assert subset and subset[0].attrs["on"] == "cuda"
+    for sp in subset:
+        big = sp.attrs["m"] >= prep.DEVICE_COMPACT_MIN_ROWS
+        assert sp.attrs["on"] == ("cuda" if big else "host")
+
+
 def test_engine_batch_of_ego_nets(card):
     """A batch of COLLAB-like ego nets through the engine on the card:
     every result equals the plain engine on the CPU and the host oracle,

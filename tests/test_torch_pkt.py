@@ -476,3 +476,130 @@ def test_align_device_rejects_missing_edges():
                                torch.device("cpu"))
     assert "not present" in str(dev.value)
     assert str(dev.value) == str(ref.value)
+
+
+# --- compaction on the device ------------------------------------------------
+
+#: the rules of ``prep.compacts_on_device`` the device-compaction tests run
+#: under:
+#: every survivor count on the device, or only the larger ones (the
+#: first compactions on the device, the later ones on the host)
+DEVICE_RULES = {
+    "always": lambda m: 0,
+    "mixed": lambda m: m // 4,
+}
+
+
+def _device_rule(monkeypatch, rule, m):
+    """Make ``prep.compacts_on_device`` choose the device (here the CPU)
+    from ``DEVICE_RULES[rule](m)`` survivors; returns that threshold."""
+    threshold = DEVICE_RULES[rule](m)
+    monkeypatch.setattr(port_prep, "compacts_on_device",
+                        lambda rows, device: rows >= threshold)
+    return threshold
+
+
+@pytest.mark.parametrize("pinned", ["none", "live", "dead"])
+@pytest.mark.parametrize("name", sorted(GRAPHS))
+def test_device_compaction_equals_host_build(name, pinned):
+    """``_make_subproblem_device`` (here on the CPU) equals
+    ``_make_subproblem``'s host build of the same survivors field for
+    field: the padded CSR, the carried state, the pinned marks (None where
+    no survivor is pinned), the output slots and the sizes.  The segment
+    starts from a host-built subset problem with pinned marks ("live"),
+    without ("none"), or gets marks only on its finished edges ("dead")."""
+    import torch
+
+    g = port_build(GRAPHS[name])
+    S0 = port_pkt.pkt(g, device="cpu").support
+    rng = np.random.default_rng(len(name))
+    live = np.sort(rng.choice(g.m, size=3 * g.m // 4, replace=False))
+    pin = rng.random(live.shape[0]) < 0.25 if pinned == "live" else None
+    kw = dict(chunk_req=None, table_mode="device", mode="kernel",
+              device=torch.device("cpu"))
+    problem = port_pkt._make_subproblem(g.El[live], live, S0[live], pin,
+                                        **kw)
+    S_ext, processed, _, _, left = port_pkt._peel_loop(
+        problem["N"], problem["Eid"], problem["S_ext0"],
+        problem["processed0"], problem["tabs"], m=problem["m"], chunk=None,
+        n_chunks=None, iters=problem["iters"], mode="kernel",
+        pinned=problem["pinned"], stop_live=live.shape[0] // 2)
+    m = problem["m"]
+    assert 0 < left == int((~processed[:m]).sum())
+    if pinned == "dead":
+        problem["pinned"] = processed.clone()
+        problem["pinned"][m] = False
+        problem["pinned_np"] = problem["pinned"].numpy()
+    host_state = (S_ext[:m].numpy(), processed[:m].numpy())
+    want = port_pkt._make_subproblem(
+        *port_pkt._host_rows(problem, S_ext, processed, host_state), **kw)
+    got = port_pkt._make_subproblem_device(problem, S_ext, processed)
+    assert (got["m"], got["live"], got["iters"]) == \
+        (want["m"], want["live"], want["iters"])
+    assert got["live"] == left
+    assert (got["tabs"].work_cap, got["tabs"].peel_rows) == \
+        (want["tabs"].work_cap, want["tabs"].peel_rows)
+    pairs = {f: (got[f], want[f]) for f in ("N", "Eid", "S_ext0",
+                                            "processed0")}
+    pairs.update({f: (getattr(got["tabs"], f), getattr(want["tabs"], f))
+                  for f in ("u", "v", "Es")})
+    pairs["ids"] = (got["ids"], torch.from_numpy(want["ids"]))
+    for f, (a, b) in pairs.items():
+        assert a.dtype == b.dtype and torch.equal(a, b), f
+    if pinned == "live":
+        assert want["pinned"] is not None
+    if pinned == "none" or pinned == "dead":
+        assert want["pinned"] is None
+    assert (got["pinned"] is None) == (want["pinned"] is None)
+    if want["pinned"] is not None:
+        assert torch.equal(got["pinned"], want["pinned"])
+    # the host build's subproblem reads the host arrays, the device's none
+    assert got["El"] is None and got["pinned_np"] is None
+
+
+@pytest.mark.parametrize("rule", sorted(DEVICE_RULES))
+@pytest.mark.parametrize("name", sorted(GRAPHS))
+def test_device_compaction_matches_reference(name, rule, monkeypatch):
+    """``pkt`` with its compactions built on the device (here the CPU,
+    ``prep.compacts_on_device`` patched; "mixed": the later, smaller ones
+    on the host) equals the reference bitwise: trussness, support, levels,
+    sub-levels and compactions.  Each ``pkt.compact`` span says where it
+    ran."""
+    from repro_torch import trace
+
+    g = port_build(GRAPHS[name])
+    threshold = _device_rule(monkeypatch, rule, g.m)
+    trace.enable()
+    try:
+        got = port_pkt.pkt(g, device="cpu", **COMPACTION["aggressive"])
+        compacts = [sp for sp in trace.spans() if sp.name == "pkt.compact"]
+    finally:
+        trace.disable()
+        trace.clear()
+    _assert_same(got, _reference(name, "aggressive"))
+    assert len(compacts) == got.compactions > 0
+    for sp in compacts:
+        want_on = "cpu" if sp.attrs["m"] >= threshold else "host"
+        assert sp.attrs == {"m": sp.attrs["m"], "on": want_on}
+    assert compacts[0].attrs["on"] == "cpu"
+    if rule == "mixed":
+        assert compacts[-1].attrs["on"] == "host"
+
+
+@pytest.mark.parametrize("rule", sorted(DEVICE_RULES))
+def test_peel_live_subset_device_compaction_with_pinned(rule, monkeypatch):
+    """The region peel with pinned edges, its later compactions built on
+    the device (here the CPU), equals the reference's."""
+    E = GRAPHS["ba"]
+    g = ref_build(E)
+    S0 = ref_pkt.pkt(g).support
+    rng = np.random.default_rng(6)
+    live = np.sort(rng.choice(g.m, size=g.m // 2, replace=False))
+    pinned = rng.random(live.shape[0]) < 0.25
+    _device_rule(monkeypatch, rule, live.shape[0])
+    kwargs = COMPACTION["aggressive"]
+    want = ref_pkt.peel_live_subset(g.El, live, S0[live], pinned,
+                                    mode="chunked", **kwargs)
+    got = port_pkt.peel_live_subset(g.El, live, S0[live], pinned,
+                                    mode="kernel", device="cpu", **kwargs)
+    assert np.array_equal(got, want)

@@ -150,6 +150,39 @@ def test_loop_spans_carry_the_sublevels(compact):
     assert (res.compactions > 0) == compact
 
 
+@pytest.mark.parametrize("path", ["host", "device"])
+def test_compact_spans_carry_their_path(path, monkeypatch):
+    """Each ``pkt.compact`` span carries ``m`` (its survivors) and ``on``:
+    "host" for the host rebuild, which the CPU takes, else the device's
+    type (here the CPU, with ``prep.compacts_on_device`` patched).  The
+    spans of a ``pkt`` keep their names and parents on either path; only
+    the host rebuild's ``csr.build`` sits inside ``pkt.compact``."""
+    from repro_torch.core import prep
+
+    if path == "device":
+        monkeypatch.setattr(prep, "compacts_on_device",
+                            lambda rows, device: True)
+    g = build_csr(rmat_edges(7, 8, seed=3))
+    trace.enable()
+    res = pkt(g, device="cpu", compact_frac=0.99, compact_min=0)
+    spans = trace.spans()
+    compacts = [sp for sp in spans if sp.name == "pkt.compact"]
+    loops = [sp for sp in spans if sp.name == "pkt.loop"]
+    assert len(compacts) == res.compactions > 0
+    on = "host" if path == "host" else "cpu"
+    for sp, nxt in zip(compacts, loops[1:]):
+        assert sp.attrs == {"m": sp.attrs["m"], "on": on}
+        assert sp.parent is None and nxt.start_ns >= sp.end_ns
+    builds = [sp for sp in spans if sp.name == "csr.build"]
+    assert len(builds) == (res.compactions if path == "host" else 0)
+    inside = {sp.id for sp in compacts}
+    assert all(sp.parent in inside for sp in builds)
+    names = [sp.name for sp in spans if sp.name != "csr.build"]
+    assert names == (["pkt.support", "pkt.peel_csr"]
+                     + ["pkt.loop", "pkt.readback", "pkt.compact"]
+                     * res.compactions + ["pkt.loop", "pkt.readback"])
+
+
 def test_dispatch_spans_sum_their_pkt_calls(monkeypatch):
     calls = []
     inner = te.pkt
