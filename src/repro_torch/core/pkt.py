@@ -502,22 +502,38 @@ def _make_subproblem_device(problem: dict, S_ext: torch.Tensor,
     field, built without a download.
 
     The survivors' rows come from the segment's ``u``/``v`` in ascending
-    edge order, with their S, output slots and pinned marks.  A vertex's new
-    id is its rank among the survivors' endpoints (a mark and a running
-    sum), which preserves order, so their keys stay sorted and the
-    tie-break is unchanged; ``prep.csr_arrays`` builds the sub-CSR.  The
-    last of its reads, queued after every other step, is the peel rows
-    that size the work list (with whether a survivor is pinned), so a span
-    around the call ends after its device work.
+    edge order, with their S, output slots and pinned marks;
+    ``_device_problem`` builds the rest.
     """
     m, tabs = problem["m"], problem["tabs"]
     live = torch.nonzero(~processed[:m])[:, 0]
-    k = live.shape[0]
-    u = tabs.u[live].to(torch.int64)
-    v = tabs.v[live].to(torch.int64)
+    pinned = problem["pinned"]
     # every vertex id of the segment lies below its offsets' length
-    seen = torch.zeros(tabs.Es.shape[0], dtype=torch.int32,
-                       device=S_ext.device)
+    return _device_problem(
+        tabs.u[live].to(torch.int64), tabs.v[live].to(torch.int64),
+        S_ext[live], _slots(problem, S_ext.device)[live],
+        None if pinned is None else pinned[live], tabs.Es.shape[0])
+
+
+def _device_problem(u: torch.Tensor, v: torch.Tensor, S: torch.Tensor,
+                    ids: torch.Tensor, pinned: torch.Tensor | None,
+                    n_ids: int) -> dict:
+    """The kernel executor's pow2-bucketed problem of the canonical edges
+    ``(u[i], v[i])`` (int64, in ascending edge order, every id below
+    ``n_ids``) with start S ``S``, output slots ``ids`` and pinned marks
+    ``pinned`` (or None), built on their device: ``_make_subproblem`` with
+    ``mode="kernel"``, equal to it field for field.
+
+    A vertex's new id is its rank among the edges' endpoints (a mark and a
+    running sum), which preserves order, so the keys stay sorted and the
+    tie-break is unchanged; ``prep.csr_arrays`` builds the CSR.  The last
+    of its reads, queued after every other step, is the peel rows that
+    size the work list (with whether an edge is pinned), so a span around
+    the call ends after its device work.
+    """
+    dev = u.device
+    k = u.shape[0]
+    seen = torch.zeros(n_ids, dtype=torch.int32, device=dev)
     seen[u] = 1
     seen[v] = 1
     rank = torch.cumsum(seen, 0) - 1
@@ -529,20 +545,19 @@ def _make_subproblem_device(problem: dict, S_ext: torch.Tensor,
     # the offsets pad as ``_peel_operands`` pads them: only in a bucket
     # larger than the edges
     n_es = n + 1 if m_pad == k else wedge_common.next_pow2(n + 1)
-    processed0 = torch.ones(m_pad + 1, dtype=torch.bool, device=S_ext.device)
+    processed0 = torch.ones(m_pad + 1, dtype=torch.bool, device=dev)
     processed0[:k] = False
-    pinned = problem["pinned"]
     reads = [torch.minimum(deg[lo], deg[hi]).sum()]
     if pinned is not None:
-        pinned = _pad(pinned[live], m_pad + 1, False)
+        pinned = _pad(pinned, m_pad + 1, False)
         reads.append(pinned.any().to(torch.int64))
     sub = dict(
         N=_pad(t["N"], 2 * m_pad, int(wedge_common.PAD_N)),
         Eid=_pad(t["Eid"], 2 * m_pad, m_pad), chunk=None, n_chunks=None,
         iters=int(np.ceil(np.log2(2 * m_pad + 1))) + 1, m=m_pad, live=k,
-        S_ext0=_pad(S_ext[live], m_pad + 1, _SENTINEL_S),
+        S_ext0=_pad(S.to(torch.int32), m_pad + 1, _SENTINEL_S),
         processed0=processed0, pinned_np=None, El=None,
-        ids=_pad(_slots(problem, S_ext.device)[live], m_pad, -1))
+        ids=_pad(ids, m_pad, -1))
     u_pad, v_pad, Es = (_pad(t["u"], m_pad, 0), _pad(t["v"], m_pad, 0),
                         _pad(t["Es"], n_es, 2 * k))
     peel_rows, *pinned_any = torch.stack(reads).tolist()
@@ -682,7 +697,9 @@ def peel_live_subset(El: np.ndarray, live_ids: np.ndarray,
     is materialized — and peeled to the fixed point (with further compaction
     as the subset shrinks).  ``S0_live`` seeds the per-edge state;
     ``pinned_live`` marks schedule edges exactly as in ``_peel_loop``.
-    Returns the final S per ``live_ids`` row.
+    Returns the final S per ``live_ids`` row.  The kernel executor builds
+    the subproblem on the device where ``prep.compacts_on_device`` says
+    for ``len(live_ids)`` edges (``_device_problem``), else on the host.
     """
     check_axis("mode", mode, PEEL_MODES)
     device = resolve_device(device)
@@ -694,15 +711,47 @@ def peel_live_subset(El: np.ndarray, live_ids: np.ndarray,
         # ascending ids are what make the compacted relabeling
         # order-preserving — the tie-break replay is silently wrong otherwise
         raise ValueError("live_ids must be strictly increasing edge ids")
+    rows = np.asarray(El)[live_ids]
+    S0_live = np.asarray(S0_live, dtype=np.int32)
+    if pinned_live is not None:
+        pinned_live = np.asarray(pinned_live, bool)
+    if mode == "kernel" and prep.compacts_on_device(k, device):
+        return peel_rows_device(
+            torch.from_numpy(rows.astype(np.int64)).to(device),
+            torch.from_numpy(S0_live).to(device),
+            None if pinned_live is None
+            else torch.from_numpy(pinned_live).to(device),
+            compact_frac=compact_frac, compact_min=compact_min)
     out = np.zeros(k, np.int32)
     problem = _make_subproblem(
-        np.asarray(El)[live_ids], np.arange(k, dtype=np.int64),
-        np.asarray(S0_live, dtype=np.int32),
-        None if pinned_live is None else np.asarray(pinned_live, bool),
+        rows, np.arange(k, dtype=np.int64), S0_live, pinned_live,
         chunk_req=chunk, table_mode=table_mode, mode=mode, device=device)
     _segmented_peel(problem, out, mode=mode, table_mode=table_mode,
                     compact_frac=compact_frac, compact_min=compact_min,
                     chunk_req=chunk, device=device)
+    return out
+
+
+def peel_rows_device(rows: torch.Tensor, S0: torch.Tensor,
+                     pinned: torch.Tensor | None, *,
+                     compact_frac: float | None = _COMPACT_FRAC,
+                     compact_min: int = _COMPACT_MIN) -> np.ndarray:
+    """``peel_live_subset`` with the kernel executor on the rows' device,
+    from tensors there: ``rows`` the subset's (k, 2) canonical edges in
+    ascending order (int64), ``S0`` their start S, ``pinned`` their
+    schedule marks (or None).  The subproblem is built there
+    (``_device_problem``) and only the final S per row (a host array)
+    comes back."""
+    k = rows.shape[0]
+    out = np.zeros(k, np.int32)
+    if k == 0:
+        return out
+    problem = _device_problem(rows[:, 0], rows[:, 1], S0,
+                              torch.arange(k, device=rows.device), pinned,
+                              int(rows.max()) + 1)
+    _segmented_peel(problem, out, mode="kernel", table_mode="device",
+                    compact_frac=compact_frac, compact_min=compact_min,
+                    chunk_req=None, device=rows.device)
     return out
 
 

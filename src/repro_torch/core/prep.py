@@ -180,11 +180,13 @@ def csr_arrays(u: torch.Tensor, v: torch.Tensor, n: int) -> dict:
                 u=u.to(torch.int32), v=v.to(torch.int32))
 
 
-def _csr(K: torch.Tensor, n: int, device: torch.device) -> CSRGraph:
+def csr_graph(K: torch.Tensor, n: int, device: torch.device) -> CSRGraph:
     """The CSR graph of the sorted canonical keys ``K`` (on ``device``),
     downloaded, its cache of ``device`` arrays seeded with the tensors:
     ``csr_arrays``, ``El``, and ``Eo``, each row's start plus its
-    neighbours below it, which are the edges it ends (``v``)."""
+    neighbours below it, which are the edges it ends (``v``).  Equal to
+    ``build_csr`` of the keys' edges field for field; the live handle
+    (``core/truss_inc.py``) builds every graph of an update batch here."""
     u, v = K // n, K % n
     t = csr_arrays(u, v, n)
     t.update(Eo=(t["Es"][:-1] + torch.bincount(v, minlength=n)).to(
@@ -230,7 +232,7 @@ def preprocess_device(edges, *, reorder: bool = True, device="cuda"):
                                  torch.maximum(rl, rh), n)
         trace.set(core_sublevels=subs)
     with trace.span("prep.build", m=K.shape[0]):
-        g = _csr(K, n, device)
+        g = csr_graph(K, n, device)
     return g, n, row_keys
 
 
@@ -249,6 +251,25 @@ def compacts_on_device(survivors: int, device: torch.device) -> bool:
     ``device``: on a CUDA device from ``DEVICE_COMPACT_MIN_ROWS``, else on
     the host."""
     return device.type == "cuda" and survivors >= DEVICE_COMPACT_MIN_ROWS
+
+
+def canonical(edges, device: torch.device) -> tuple[np.ndarray, int]:
+    """The rows' unique canonical edges, key-sorted ``(k, 2)`` int64, and
+    their id space ``n``: ``canonical_edges_with_rows``'s ``E`` and ``n``,
+    found on ``device`` where ``on_device`` says (one ``prep.canonical``
+    span, ``m``), else on the host.  Raises ``check_edge_array``'s
+    ``ValueError`` on rows it rejects."""
+    if not on_device(len(edges), device):
+        E, _, _, n = canonical_edges_with_rows(edges)
+        return E, n
+    with trace.span("prep.canonical"):
+        rows, n = _upload(edges, device)
+        if rows is None:
+            return np.zeros((0, 2), np.int64), 0
+        K = torch.unique(edge_keys(torch.minimum(rows[:, 0], rows[:, 1]),
+                                   torch.maximum(rows[:, 0], rows[:, 1]), n))
+        trace.set(m=K.shape[0])
+        return torch.stack([K // n, K % n], dim=1).cpu().numpy(), n
 
 
 def prepare(edges, *, reorder: bool = True, device: torch.device):

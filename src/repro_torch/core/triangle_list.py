@@ -31,24 +31,28 @@ _SENTINEL_S = 1 << 30
 
 
 def _triangles_dev(g: CSRGraph, device: torch.device) -> torch.Tensor:
-    """(t, 3) int32 edge-id triangles on ``device``, in support-table order."""
+    """(t, 3) int32 edge-id triangles on ``device``, in support-table order.
+
+    The oriented support table is built and probed one slice of
+    ``wedge_common.SLICE_ROWS`` rows at a time, so that only the triangles
+    found and one slice's table are held at once (a whole Graph500
+    scale-18 table is 0.94 × 10^9 rows)."""
     size = support_mod.support_table_size(g)
     if size == 0:
         return torch.zeros((0, 3), dtype=torch.int32, device=device)
     support_mod._check_table_size(size)
     dev = g.device_arrays(device)
     N, Eid = dev["N"], dev["Eid"]
-    e1, cand, lo, hi, _ = support_mod._build_support_table_dev(
-        dev["u"], dev["v"], dev["Es"], dev["Eo"], g.m, m=g.m, size=size)
     iters = support_mod._search_iters(g, oriented=True)
     parts = []
     for start, stop in wedge_common.row_slices(size):
-        c = cand[start:stop]
-        hit, safe = wedge_common.probe(N, c, lo[start:stop], hi[start:stop],
-                                       iters=iters)
+        e1, cand, lo, hi, _ = support_mod._build_support_table_dev(
+            dev["u"], dev["v"], dev["Es"], dev["Eo"], g.m, m=g.m,
+            size=stop - start, start=start)
+        hit, safe = wedge_common.probe(N, cand, lo, hi, iters=iters)
         idx = torch.nonzero(hit)[:, 0]
-        parts.append(torch.stack(
-            [e1[start:stop][idx], Eid[c[idx]], Eid[safe[idx]]], dim=1))
+        parts.append(torch.stack([e1[idx], Eid[cand[idx]], Eid[safe[idx]]],
+                                 dim=1))
     return torch.cat(parts)
 
 

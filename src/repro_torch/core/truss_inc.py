@@ -18,7 +18,16 @@ bounded by the *affected region*:
      ``insert_mode="batched"`` repairs a whole insertion batch against one
      merged region under the batch bound ``UB = min(S+2, T+b)``;
      ``insert_mode="sequential"`` keeps the one-at-a-time path as the
-     bitwise parity oracle.
+     bitwise parity oracle.  ``insert_mode="klevel"`` applies the edges
+     one at a time too, each against the region of k-level triangle
+     connectivity (Huang et al., SIGMOD 2014): an edge at level k can rise
+     only through triangles whose edges all stay at or above k, stepping
+     only through edges at level k (``_klevel_region``).  Its bound is
+     also capped by the handle's *ceiling*: the trussness of the last
+     decomposed graph that still holds every current edge (a subgraph's
+     trussness never exceeds its supergraph's), so an edge put back rises
+     no higher than it stood, and a level no insertion can lift is not
+     searched, the graph's top level included.
   3. **Local re-peel** — the region is re-peeled against a *pinned
      boundary*: exterior triangle partners are seeded at their death level
      ``trussness − 2`` and shielded from decrements.  Regions up to
@@ -38,8 +47,13 @@ Where the port differs from the reference (results are bitwise equal):
     and the h-operator with its descent (``_h_values``, ``_h_descent``).
     The reference runs them as host numpy; at Graph500 scale 17 (36 M
     triangles) one 0.1 % churn batch took 923 s that way on the host of
-    an H100 machine (PERF.md).  Per-edge bookkeeping (bounds, candidate
-    masks, the new CSR) stays host numpy.
+    an H100 machine (PERF.md).
+  * A batch's edge keys, id maps and CSR builds run on the device too
+    (``_Batch``, ``prep.csr_graph``), as does the full rebuild's
+    preprocessing (``prep.prepare``); the committed CSR, trussness and
+    support are downloaded once a batch.  The "batched" and "sequential"
+    modes keep their per-edge bookkeeping (bounds, candidate masks) as
+    host numpy; "klevel" keeps its batch state on the device.
   * ``triangle_list`` enumerates on the device (``core.triangle_list``'s
     oriented-table probe) and sorts the rows into the reference's order;
     the reference probes a full-adjacency table on the host.
@@ -49,11 +63,20 @@ region peel at or below ``host_peel_max``) stay host numpy, as in the
 reference.  The serving layer wraps this in ``TrussEngine.open / update /
 close`` (``serve/truss_engine.py``); ``launch/truss.py --update-stream``
 replays synthetic churn through it.
+
+Spans (``repro_torch.trace``, one per call): ``inc.update`` (``mode``,
+``insert_mode``, ``inserted``, ``deleted``, ``affected``, ``boundary``,
+``rounds``), ``inc.delete``, ``inc.search`` (``levels``, ``region``),
+``inc.region_peel`` (``on``: "host" or the device's type; ``edges``,
+``pinned``), ``inc.csr`` (``on``; a batch's key algebra, each CSR build
+and the recount) and ``inc.rebuild`` (``m``; every full rebuild, the one
+at construction too).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import importlib
 import time
 
 import numpy as np
@@ -62,24 +85,30 @@ import torch
 from repro_torch import trace
 from repro_torch.core import support as support_mod
 from repro_torch.core.hierarchy import HIER_MODES, TrussHierarchy
+from repro_torch.core import prep
 from repro_torch.core.pkt import (_COMPACT_FRAC, _COMPACT_MIN, PEEL_MODES,
-                                  peel_live_subset, pkt, truss_pkt)
-from repro_torch.core.prep import (PREPROCESS_SPANS, align_to_input,
-                                   order_and_build)
+                                  peel_live_subset, truss_pkt)
+from repro_torch.core.prep import align_to_input
 from repro_torch.core.support import check_axis
 from repro_torch.core.triangle_list import _triangles_dev
 from repro_torch.device import resolve_device, synchronize
-from repro_torch.graphs.csr import (CSRGraph, build_csr,
-                                    canonical_edges_with_rows,
-                                    check_edge_array, edge_keys)
+from repro_torch.graphs.csr import (CSRGraph, build_csr, check_edge_array,
+                                    edge_keys)
 from repro_torch.kernels import wedge_common
 from repro_torch.testing.chaos import fault_point
 
 #: Insertion repair strategies (DESIGN.md §13): ``"batched"`` repairs the
 #: whole insertion batch against one merged candidate region; ``"sequential"``
 #: applies edges one at a time (the ±1 locality bound) and serves as the
-#: bitwise parity oracle for the batched path.
-INSERT_MODES = ("sequential", "batched")
+#: bitwise parity oracle for the batched path; ``"klevel"`` applies them one
+#: at a time as well, each against its k-level region (``_klevel_region``),
+#: and equals "sequential" in trussness, support and triangle rows.
+INSERT_MODES = ("sequential", "batched", "klevel")
+
+#: ``core/pkt.py`` itself (``repro_torch.core`` re-exports its ``pkt``
+#: function under the module's name): full rebuilds call ``pkt`` through it,
+#: so that whatever stands in the module's ``pkt`` is what a handle runs
+_pkt_mod = importlib.import_module("repro_torch.core.pkt")
 
 
 class IntegrityError(RuntimeError):
@@ -221,6 +250,20 @@ def triangles_through(g: CSRGraph,
             g.Eid[safe[hit]].astype(np.int64))
 
 
+def edge_triangles(g: CSRGraph, e: int) -> tuple[np.ndarray, np.ndarray]:
+    """The other two edges of every triangle through edge ``e``, as
+    ``triangles_through(g, [e])`` gives them (by the third vertex), found
+    by intersecting the two endpoints' sorted adjacency rows: work
+    O(deg u + deg v), where ``triangles_through`` lays out arrays over all
+    ``m`` edges for its table."""
+    u, v = int(g.El[e, 0]), int(g.El[e, 1])
+    ru = slice(int(g.Es[u]), int(g.Es[u + 1]))
+    rv = slice(int(g.Es[v]), int(g.Es[v + 1]))
+    _, iu, iv = np.intersect1d(g.N[ru], g.N[rv], assume_unique=True,
+                               return_indices=True)
+    return (g.Eid[ru][iu].astype(np.int64), g.Eid[rv][iv].astype(np.int64))
+
+
 def _triangle_rows(g: CSRGraph, device: torch.device) -> torch.Tensor:
     """``triangle_list`` as an int64 (T, 3) tensor on ``device``."""
     if g.m == 0:
@@ -261,12 +304,136 @@ def _ids(x, device: torch.device) -> torch.Tensor:
         device)
 
 
+def _on(x, device: torch.device) -> torch.Tensor:
+    """A host array or a tensor as a tensor on ``device``, dtype kept."""
+    if isinstance(x, torch.Tensor):
+        return x.to(device)
+    return torch.from_numpy(np.ascontiguousarray(x)).to(device)
+
+
+def _host(x) -> np.ndarray:
+    """A tensor or a host array as a host array."""
+    return x.cpu().numpy() if isinstance(x, torch.Tensor) else x
+
+
+def _where(device: torch.device) -> str:
+    """A span's ``on``: "host" for the CPU, else the device's type."""
+    return "host" if device.type == "cpu" else device.type
+
+
+def _distinct(x: torch.Tensor, n: int) -> torch.Tensor:
+    """``torch.unique(x)`` for ids in ``[0, n)``: a mark over the ``n``
+    slots read back in order where ``x`` is long against ``n`` (no sort of
+    ``x``), else the sort.  The switch is not tuned: over 3.8 M slots on an
+    H100 either takes under 0.15 ms from 10^4 ids to 10^6."""
+    if x.numel() * 16 < n:
+        return torch.unique(x)
+    mark = torch.zeros(n, dtype=torch.bool, device=x.device)
+    mark[x] = True
+    return torch.nonzero(mark).view(-1)
+
+
+def _member(keys: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
+    """Whether each of ``q`` is one of the sorted ``keys``."""
+    if keys.numel() == 0 or q.numel() == 0:
+        return torch.zeros(q.shape, dtype=torch.bool, device=q.device)
+    pos = torch.searchsorted(keys, q).clamp_(max=keys.numel() - 1)
+    return keys[pos] == q
+
+
+def _caps(ceiling, K: torch.Tensor, n: int) -> torch.Tensor | None:
+    """Each key of ``K``'s trussness under ``ceiling`` (``(n, keys,
+    T)``), -1 where the ceiling lacks the key; ``None`` where there is no
+    ceiling over the vertex space ``n``."""
+    if ceiling is None or ceiling[0] != n or ceiling[1].numel() == 0:
+        return None
+    _, keys, T = ceiling
+    pos = torch.searchsorted(keys, K).clamp_(max=keys.numel() - 1)
+    return torch.where(keys[pos] == K, T[pos], -1)
+
+
+def _merge(a: torch.Tensor, b: torch.Tensor):
+    """The sorted union of two disjoint sorted key tensors, and the
+    position in it of each key of ``a`` and of ``b``."""
+    dev = a.device
+    at_a = torch.arange(a.numel(), device=dev) + torch.searchsorted(b, a)
+    at_b = torch.arange(b.numel(), device=dev) + torch.searchsorted(a, b)
+    K = torch.empty(a.numel() + b.numel(), dtype=torch.int64, device=dev)
+    K[at_a] = a
+    K[at_b] = b
+    return K, at_a, at_b
+
+
+@dataclasses.dataclass
+class _Batch:
+    """One update batch's edge-key algebra, on the handle's device.
+
+    ``old`` holds the committed graph's keys (sorted, as its edge ids
+    are), ``I`` the keys inserted (not in ``old``) and ``D`` the keys
+    deleted (in ``old``, not added back), both sorted.  The phases fill in
+    the id maps as they build the graphs: ``keep`` (the old edges that
+    stay), ``mid_of_old`` (old id → id after the deletions, -1 where
+    deleted), ``new_of_mid`` and ``ins_new`` (mid and inserted ids → ids
+    in the new graph) with the new keys ``K``.
+    """
+
+    n: int
+    old: torch.Tensor
+    I: torch.Tensor
+    D: torch.Tensor
+    keep: torch.Tensor | None = None
+    mid_of_old: torch.Tensor | None = None
+    K: torch.Tensor | None = None
+    new_of_mid: torch.Tensor | None = None
+    ins_new: torch.Tensor | None = None
+
+    @classmethod
+    def plan(cls, g: CSRGraph, add: np.ndarray, rem: np.ndarray, n: int,
+             device: torch.device) -> "_Batch":
+        """``E → (E − rem) ∪ add`` over ``g``'s keys: an edge in both
+        batches ends up present."""
+        dev = g.device_arrays(device)
+        old = prep.edge_keys(dev["u"], dev["v"], n)
+        add_k = _ids(IncrementalTruss._batch_keys(add, n), device)
+        rem_k = _ids(IncrementalTruss._batch_keys(rem, n), device)
+        rem_k = rem_k[~_member(add_k, rem_k)]
+        return cls(n=n, old=old, I=add_k[~_member(old, add_k)],
+                   D=rem_k[_member(old, rem_k)])
+
+    def delete(self) -> torch.Tensor:
+        """Fill ``keep`` and ``mid_of_old``; returns the mid keys."""
+        keep = torch.ones(self.old.numel(), dtype=torch.bool,
+                          device=self.old.device)
+        keep[torch.searchsorted(self.old, self.D)] = False
+        self.keep = keep
+        self.mid_of_old = torch.where(keep, torch.cumsum(keep, 0) - 1, -1)
+        return self.old[keep]
+
+    def merge(self) -> torch.Tensor:
+        """Fill ``K``, ``new_of_mid`` and ``ins_new``; returns ``K``."""
+        if self.K is None:
+            mid = self.old if self.keep is None else self.old[self.keep]
+            self.K, self.new_of_mid, self.ins_new = _merge(mid, self.I)
+        return self.K
+
+    def old_to_new(self) -> torch.Tensor:
+        """Each old edge's id in the new graph, -1 where deleted."""
+        ids = (torch.arange(self.old.numel(), device=self.old.device)
+               if self.mid_of_old is None else self.mid_of_old)
+        if self.new_of_mid is None:
+            return ids
+        return torch.where(ids >= 0, self.new_of_mid[ids.clamp(min=0)], -1)
+
+
 class _Incidence:
     """Edge → triangle-row CSR over a fixed (T, 3) triangle tensor.
 
     Built and read on the triangle tensor's device: ``off`` (m+1,) and
     ``idx`` (3T,) group the members by a stable sort, the same permutation
-    as the reference's host ``argsort(kind="stable")``.
+    as the reference's host ``argsort(kind="stable")``: each edge's rows in
+    ascending order.  A live handle carries it across its batches without
+    sorting again: ``deleted``, ``remapped`` and ``appended`` derive the
+    incidence of the triangle list each phase builds, equal to a fresh one.
     """
 
     def __init__(self, tri: torch.Tensor, m: int):
@@ -279,6 +446,72 @@ class _Incidence:
         flat = tri.reshape(-1)
         self.off[1:] = torch.cumsum(torch.bincount(flat, minlength=m), 0)
         self.idx = torch.sort(flat, stable=True).indices // 3
+
+    @classmethod
+    def _of(cls, tri: torch.Tensor, off: torch.Tensor,
+            idx: torch.Tensor) -> "_Incidence":
+        inc = cls.__new__(cls)
+        inc.tri, inc.off, inc.idx = tri, off, idx
+        return inc
+
+    def counts(self) -> torch.Tensor:
+        """Each edge's number of rows."""
+        return self.off[1:] - self.off[:-1]
+
+    @staticmethod
+    def _offsets(cnt: torch.Tensor) -> torch.Tensor:
+        off = torch.zeros(cnt.shape[0] + 1, dtype=torch.int64,
+                          device=cnt.device)
+        off[1:] = torch.cumsum(cnt, 0)
+        return off
+
+    def deleted(self, lost: torch.Tensor, keep: torch.Tensor,
+                tri: torch.Tensor) -> "_Incidence":
+        """The incidence of ``tri``: this list without the ``lost`` rows
+        (a mask), renumbered in order, over the edges ``keep`` marks (no
+        kept row holds a dropped edge), renumbered in order."""
+        row = torch.cumsum(~lost, 0) - 1
+        idx = row[self.idx[~lost[self.idx]]]
+        gone = torch.bincount(self.tri[lost].reshape(-1),
+                              minlength=keep.shape[0])
+        return _Incidence._of(tri, self._offsets((self.counts() - gone)[keep]),
+                              idx)
+
+    def remapped(self, new_of_old: torch.Tensor, m: int,
+                 tri: torch.Tensor) -> "_Incidence":
+        """The incidence of ``tri``: the same rows with edge ``e`` renamed
+        ``new_of_old[e]`` (increasing) in a space of ``m`` edges."""
+        cnt = torch.zeros(m, dtype=torch.int64, device=self.off.device)
+        cnt[new_of_old] = self.counts()
+        return _Incidence._of(tri, self._offsets(cnt), self.idx)
+
+    def appended(self, side: torch.Tensor, tri: torch.Tensor) -> "_Incidence":
+        """The incidence of ``tri``: this list followed by the ``side``
+        rows.  Each edge's side rows come after its own (their indices are
+        larger), so every entry moves up by the side entries of the edges
+        before its own."""
+        if side.numel() == 0:
+            return _Incidence._of(tri, self.off, self.idx)
+        dev = self.off.device
+        m = self.off.shape[0] - 1
+        flat = side.reshape(-1)
+        order = torch.sort(flat, stable=True).indices
+        s_edge = flat[order]
+        s_cnt = torch.bincount(flat, minlength=m)
+        cnt = self.counts()
+        off = self._offsets(cnt + s_cnt)
+        n_old = self.idx.shape[0]
+        owner = torch.repeat_interleave(torch.arange(m, device=dev), cnt,
+                                        output_size=n_old)
+        idx = torch.empty(n_old + flat.shape[0], dtype=torch.int64,
+                          device=dev)
+        idx[torch.arange(n_old, device=dev)
+            + (off[:-1] - self.off[:-1])[owner]] = self.idx
+        rank = torch.arange(flat.shape[0], device=dev) \
+            - (torch.cumsum(s_cnt, 0) - s_cnt)[s_edge]
+        idx[off[s_edge] + cnt[s_edge] + rank] = \
+            self.tri.shape[0] + order // 3
+        return _Incidence._of(tri, off, idx)
 
     def rows_of(self, edges: torch.Tensor) -> torch.Tensor:
         """Triangle-row indices incident to any of ``edges`` (with repeats),
@@ -303,20 +536,39 @@ def _tri_bfs(inc: _Incidence, side: torch.Tensor, seeds: torch.Tensor,
     ``allowed`` are dropped).  All tensors on one device.
     """
     visited = torch.zeros_like(allowed)
-    frontier = torch.unique(seeds[allowed[seeds]])
+    frontier = _distinct(seeds[allowed[seeds]], allowed.shape[0])
     visited[frontier] = True
     while frontier.numel():
-        rows = inc.tri[torch.unique(inc.rows_of(frontier))]
+        rows = inc.tri[_distinct(inc.rows_of(frontier), inc.tri.shape[0])]
         if side.numel():
             hit = torch.isin(side, frontier).any(dim=1)
             rows = torch.cat([rows, side[hit]])
         if rows.numel() == 0:
             break
         cand = rows[allowed[rows].all(dim=1)].reshape(-1)
-        cand = torch.unique(cand[~visited[cand]])
+        cand = _distinct(cand[~visited[cand]], visited.shape[0])
         visited[cand] = True
         frontier = cand
     return torch.nonzero(visited).view(-1)
+
+
+def _partner_min(inc: _Incidence, tau: torch.Tensor, work: torch.Tensor):
+    """For each triangle of each edge in ``work``: its owner's index in
+    ``work`` and the lower ``tau`` of the other two edges.  Returns
+    ``(owner, cnt, pmin)``, ``cnt`` each edge's number of triangles."""
+    cnt = inc.off[work + 1] - inc.off[work]
+    owner = torch.repeat_interleave(
+        torch.arange(work.shape[0], device=work.device), cnt)
+    rows = inc.tri[inc.rows_of(work)]
+    if rows.numel() == 0:
+        return owner, cnt, torch.zeros(0, dtype=tau.dtype, device=tau.device)
+    e = work[owner]
+    t0, t1, t2 = tau[rows[:, 0]], tau[rows[:, 1]], tau[rows[:, 2]]
+    pmin = torch.where(
+        rows[:, 0] == e, torch.minimum(t1, t2),
+        torch.where(rows[:, 1] == e, torch.minimum(t0, t2),
+                    torch.minimum(t0, t1)))
+    return owner, cnt, pmin
 
 
 def _h_values(inc: _Incidence, tau: torch.Tensor,
@@ -327,18 +579,10 @@ def _h_values(inc: _Incidence, tau: torch.Tensor,
     h = torch.zeros(work.shape[0], dtype=torch.int64, device=work.device)
     if work.numel() == 0:
         return h
-    cnt = inc.off[work + 1] - inc.off[work]
-    owner = torch.repeat_interleave(
-        torch.arange(work.shape[0], device=work.device), cnt)
-    rows = inc.tri[inc.rows_of(work)]
-    if rows.numel():
-        e = work[owner]
+    owner, cnt, pmin = _partner_min(inc, tau, work)
+    if pmin.numel():
         # partner-min in rho (= tau - 2) space, per membership
-        t0, t1, t2 = tau[rows[:, 0]], tau[rows[:, 1]], tau[rows[:, 2]]
-        val = torch.where(
-            rows[:, 0] == e, torch.minimum(t1, t2),
-            torch.where(rows[:, 1] == e, torch.minimum(t0, t2),
-                        torch.minimum(t0, t1))) - 2
+        val = pmin - 2
         # by owner, each owner's values descending (a stable sort by -val,
         # then a stable sort by owner); the order among equal values does
         # not change the maximum below
@@ -352,6 +596,19 @@ def _h_values(inc: _Incidence, tau: torch.Tensor,
     return h + 2
 
 
+def _below(inc: _Incidence, tau: torch.Tensor,
+           work: torch.Tensor) -> torch.Tensor:
+    """Whether each edge in ``work`` has its h-operator value below its
+    ``tau``: fewer than ``tau − 2`` of its triangles have both other edges
+    at ``tau`` or above.  A count, where ``_h_values`` sorts."""
+    if work.numel() == 0:
+        return torch.zeros(0, dtype=torch.bool, device=work.device)
+    owner, _, pmin = _partner_min(inc, tau, work)
+    tw = tau[work]
+    n_ok = torch.bincount(owner[pmin >= tw[owner]], minlength=work.shape[0])
+    return n_ok < tw - 2
+
+
 def _h_descent(inc: _Incidence, tau: torch.Tensor, seeds: torch.Tensor,
                totals, limit: float) -> bool:
     """Chaotic descent of the truss h-operator from a valid upper bound.
@@ -361,26 +618,117 @@ def _h_descent(inc: _Incidence, tau: torch.Tensor, seeds: torch.Tensor,
     actually drop plus their triangle neighborhoods.  Mutates ``tau``;
     returns False (request the full-recompute fallback) once more than
     ``limit`` edges have dropped — the local_frac policy.
+
+    A pass counts which of its edges drop (``_below``) and evaluates the
+    h-operator for those alone.  It re-evaluates only the dropped edges'
+    triangle partners whose
+    value lies above the lowest value a dropped edge fell to: a partner
+    dropping from ``t`` to ``t' >= tau[f]`` still counts for ``f`` at
+    every level up to ``tau[f]``, so ``f`` stays.  Where that leaves no
+    edge, the pass that would have found nothing to lower is counted
+    all the same, so ``rounds`` reads as without the filter.
     """
     changed = torch.zeros(tau.shape[0], dtype=torch.bool, device=tau.device)
-    work = torch.unique(seeds)
+    work = _distinct(seeds, tau.shape[0])
     while work.numel():
         totals["passes"] += 1
-        h = _h_values(inc, tau, work)
-        drop = h < tau[work]
-        dropped = work[drop]
-        tau[dropped] = h[drop]
-        changed[dropped] = True
+        # the h-operator (a sort) only for the edges that drop (a count)
+        dropped = work[_below(inc, tau, work)]
         if dropped.numel() == 0:
             break
+        h = _h_values(inc, tau, dropped)
+        tau[dropped] = h
+        changed[dropped] = True
         n_changed = int(changed.sum())
         if n_changed > limit:
             totals["affected"] += n_changed
             return False
-        rows = inc.tri[torch.unique(inc.rows_of(dropped))]
-        work = torch.unique(rows.reshape(-1))
+        rows = inc.tri[_distinct(inc.rows_of(dropped), inc.tri.shape[0])]
+        near = _distinct(rows.reshape(-1), tau.shape[0])
+        work = near[tau[near] > h.min()]
+        if near.numel() and not work.numel():
+            totals["passes"] += 1
+            break
     totals["affected"] += int(changed.sum())
     return True
+
+
+def _klevel_region(inc: _Incidence, side: torch.Tensor, e0: int,
+                   T: torch.Tensor, UB: torch.Tensor, totals,
+                   limit: float) -> torch.Tensor | None:
+    """The edges whose trussness the insertion of ``e0`` can raise, and
+    ``e0``: the k-level region (Huang et al., SIGMOD 2014).
+
+    One insertion raises a trussness by at most one, and an edge at level
+    ``k = T`` rises only into the new (k+1)-truss H.  A component of such
+    risers that touches no triangle of ``e0`` would, with the old
+    (k+1)-truss, already have been a (k+1)-truss, so every riser is
+    reached from ``e0`` through triangles of H stepping only through
+    risers at its own level.  The search follows that: from ``e0``'s
+    triangles (``side`` rows) onto each partner at its level k, then
+    through any triangle (``inc`` rows and ``side`` rows) whose three
+    edges all have ``UB >= k + 1`` (the bound ``min(S + 2, T + 1)``,
+    ``e0``'s its h-operator cap, 0 for absent edges: H's triangles pass)
+    onto partners with ``T == k``.  Same-level steps keep the levels
+    apart, so one traversal serves every level.  A frontier edge is kept
+    and expanded only if k − 1 of its triangles pass at its level, as an
+    edge of H has k − 1 triangles in H; an edge that fails cannot rise,
+    and no triangle through it is one of H's.
+
+    The graph's top level is taken whole instead, where ``e0`` reaches it:
+    no edge lies above it, so the search there can only walk the class
+    (in a Graph500 scale-18 graph 223,585 edges, one dense component,
+    about 17 rounds), while the re-peel settles it as well from the whole
+    class, a superset of its risers.
+
+    Returns the region's sorted edge ids (``e0`` among them) on ``T``'s
+    device, or ``None`` once it holds more than ``limit`` edges.  Counts
+    its rounds in ``totals["passes"]``.
+    """
+    dev = T.device
+    seen = torch.zeros(T.shape[0], dtype=torch.bool, device=dev)
+    seen[e0] = True
+    region = seen.clone()
+    size = 1
+    rows0 = side[(side == e0).any(dim=1)]
+    cand = rows0.reshape(-1)
+    cross = UB[rows0].amin(dim=1).repeat_interleave(3) >= T[cand] + 1
+    frontier = _distinct(cand[cross & ~seen[cand]], T.shape[0])
+    top = T.max()
+    at_top = T[frontier] == top
+    if bool(at_top.any()):
+        level = T == top
+        region |= level
+        seen |= level
+        size += int(level.sum())
+        if size > limit:
+            return None
+        frontier = frontier[~at_top]
+    while frontier.numel():
+        totals["passes"] += 1
+        seen[frontier] = True
+        cnt = inc.off[frontier + 1] - inc.off[frontier]
+        owner = torch.repeat_interleave(
+            torch.arange(frontier.numel(), device=dev), cnt)
+        rows = inc.tri[inc.rows_of(frontier)]
+        if side.numel():
+            si, sj = torch.nonzero(torch.isin(side, frontier), as_tuple=True)
+            rows = torch.cat([rows, side[si]])
+            owner = torch.cat([owner,
+                               torch.searchsorted(frontier, side[si, sj])])
+        k = T[frontier]
+        ok = UB[rows].amin(dim=1) >= k[owner] + 1
+        riser = torch.bincount(owner[ok], minlength=frontier.numel()) >= k - 1
+        region[frontier[riser]] = True
+        size += int(riser.sum())
+        if size > limit:
+            return None
+        step = ok & riser[owner]
+        cand = rows[step].reshape(-1)
+        level = k[owner[step]].repeat_interleave(3)
+        frontier = _distinct(cand[(T[cand] == level) & ~seen[cand]],
+                             T.shape[0])
+    return torch.nonzero(region).view(-1)
 
 
 # -------------------------------------------------------------- local peel --
@@ -444,8 +792,8 @@ class IncrementalTruss:
         support_mode: support executor ("kernel" — K1 — by default).
         table_mode: where the torch executors' wedge tables are built.
         hier_mode: community-index builder ("device" / "host", §11).
-        insert_mode: insertion repair strategy ("batched" / "sequential",
-            §13); bitwise-identical results.
+        insert_mode: insertion repair strategy ("batched" / "sequential" /
+            "klevel", §13); bitwise-identical trussness and support.
         chunk: peel chunk size of the torch executors (pow2); ``None``
             derives it from the table size.
         local_frac: affected-region fraction above which an update falls
@@ -476,7 +824,7 @@ class IncrementalTruss:
                         local_frac=local_frac, host_peel_max=host_peel_max,
                         compact_frac=compact_frac, compact_min=compact_min,
                         device=device)
-        E, _, _, n_seen = canonical_edges_with_rows(edges)
+        E, n_seen = prep.canonical(edges, self.device)
         self.n = max(int(n or 0), n_seen)
         self._full_rebuild(E)
 
@@ -501,6 +849,10 @@ class IncrementalTruss:
         self.hier_mode = hier_mode
         self.insert_mode = insert_mode
         self._hier: TrussHierarchy | None = None
+        #: ``(n, keys, T)``: the last decomposed graph that holds every
+        #: current edge, as sorted keys over ``n`` vertices and their
+        #: trussness (``_set_ceiling``)
+        self._ceiling = None
         self.compact_frac = compact_frac
         self.compact_min = int(compact_min)
         self.chunk = (None if chunk is None
@@ -543,8 +895,8 @@ class IncrementalTruss:
         if not np.array_equal(g.El, E):
             raise ValueError("edges must be canonical: u < v rows, unique, "
                              "in key order")
-        T = np.asarray(trussness, np.int64)
-        S = np.asarray(support, np.int32)
+        T = np.array(trussness, np.int64)        # copies: the handle owns
+        S = np.array(support, np.int32)          # its state
         tri = np.asarray(triangles, np.int64).reshape(-1, 3)
         if T.shape != (g.m,) or S.shape != (g.m,):
             raise ValueError(f"trussness and support must be ({g.m},), got "
@@ -552,6 +904,7 @@ class IncrementalTruss:
         if tri.size and (int(tri.min()) < 0 or int(tri.max()) >= g.m):
             raise ValueError("triangle rows reference edge ids beyond m")
         inc._commit(g, T, S, _ids(tri, inc.device))
+        inc._set_ceiling()
         return inc
 
     # ------------------------------------------------------------ queries --
@@ -689,119 +1042,119 @@ class IncrementalTruss:
         hi_seen = max(int(add.max(initial=-1)), int(rem.max(initial=-1)))
         if hi_seen >= self.n:
             self.n = hi_seen + 1          # vertex space grows monotonically
-        n = self.n
+        with trace.span("inc.update", insert_mode=imode):
+            st = self._update(add, rem, imode, t0)
+            trace.set(mode=st.mode, inserted=st.inserted, deleted=st.deleted,
+                      affected=st.affected, boundary=st.boundary,
+                      rounds=st.rounds)
+        return st
+
+    def _update(self, add, rem, imode, t0) -> UpdateStats:
+        """``update`` on checked rows, inside its ``inc.update`` span."""
+        dev = self.device
         m_before = self.g.m
-
-        old_keys = edge_keys(self.g.El[:, 0].astype(np.int64),
-                             self.g.El[:, 1].astype(np.int64), n)
-        add_keys = self._batch_keys(add, n)
-        rem_keys = self._batch_keys(rem, n)
-        new_keys = np.union1d(
-            np.setdiff1d(old_keys, rem_keys, assume_unique=True), add_keys)
-        I_keys = np.setdiff1d(new_keys, old_keys, assume_unique=True)
-        D_keys = np.setdiff1d(old_keys, new_keys, assume_unique=True)
-
+        with trace.span("inc.csr", on=_where(dev)):
+            batch = _Batch.plan(self.g, add, rem, self.n, dev)
+            n_ins, n_del = batch.I.numel(), batch.D.numel()
         totals = {"affected": 0, "boundary": 0, "passes": 0}
-        T_old_ref = self.T      # for the changed count (old-id space)
+        T_old_np = self.T       # for the changed count (old-id space)
 
-        def done(mode):
-            m_after = self.g.m
-            if mode == "noop":
-                changed = 0
-            else:
-                posn = np.searchsorted(
-                    edge_keys(self.g.El[:, 0].astype(np.int64),
-                              self.g.El[:, 1].astype(np.int64), n), old_keys)
-                safe = np.minimum(posn, max(m_after - 1, 0))
-                ok = np.zeros(m_before, bool)
-                if m_after:
-                    kn = edge_keys(self.g.El[:, 0].astype(np.int64),
-                                   self.g.El[:, 1].astype(np.int64), n)
-                    ok = (posn < m_after) & (kn[safe] == old_keys)
-                changed = int((self.T[posn[ok]] != T_old_ref[ok]).sum()) \
-                    + int(I_keys.size)
-                if mode == "local" and self._hier is not None:
-                    self._hier_update(old_keys, I_keys, T_old_ref, posn, ok,
-                                      kn if m_after else None)
+        def done(mode, T_new=None):
+            changed = 0
+            if mode != "noop":
+                with trace.span("inc.csr", on=_where(dev)):
+                    old_to_new = batch.old_to_new()
+                    ok = old_to_new >= 0
+                    T_new = _on(self.T if T_new is None else T_new, dev)
+                    changed = int((T_new[old_to_new[ok]] != T_old[ok]).sum()
+                                  ) + n_ins
+                    if mode == "local" and self._hier is not None:
+                        self._hier_update(
+                            _host(old_to_new), T_old_np,
+                            _host(batch.ins_new) if n_ins
+                            else np.zeros(0, np.int64))
             st = UpdateStats(
-                mode=mode, m_before=m_before, m_after=m_after,
-                inserted=int(I_keys.size), deleted=int(D_keys.size),
+                mode=mode, m_before=m_before, m_after=self.g.m,
+                inserted=n_ins, deleted=n_del,
                 affected=totals["affected"], boundary=totals["boundary"],
                 rounds=totals["passes"], changed=changed,
                 seconds=time.perf_counter() - t0,
-                insert_mode=imode if (I_keys.size and mode != "noop")
-                else None)
+                insert_mode=imode if (n_ins and mode != "noop") else None)
             self.stats["updates"] += 1
             self.stats[mode] += 1
             self.stats["update_seconds"] += st.seconds
             self.stats["last"] = st
             return st
 
-        if I_keys.size == 0 and D_keys.size == 0:
+        if n_ins == 0 and n_del == 0:
             return done("noop")
 
-        E_new = np.stack([new_keys // n, new_keys % n], axis=1)
-        limit = self.local_frac * max(1, new_keys.shape[0])
+        limit = self.local_frac * max(1, m_before - n_del + n_ins)
+        T_old, S_old = self._device_state()
+
+        def fallback():
+            with trace.span("inc.csr", on=_where(dev)):
+                K = batch.merge()
+                E_new = _host(torch.stack([K // batch.n, K % batch.n], 1))
+            self._full_rebuild(E_new)
+            return done("full")
 
         # Both phases build the next state off to the side and it is
         # committed exactly once, after the whole batch has succeeded — an
         # exception mid-repair leaves the handle untouched (§13).
-        state = (self.g, self.T, self.S, self.tri)
+        state = (self.g, T_old, S_old, self.tri, self._incidence())
 
         # ---------------- phase D: all deletions as one exact batch -------
-        if D_keys.size:
-            state = self._apply_deletions(old_keys, D_keys, n, limit, totals)
+        if n_del:
+            with trace.span("inc.delete"):
+                state = self._apply_deletions(batch, T_old, S_old, limit,
+                                              totals)
             if state is None:
-                self._full_rebuild(E_new)
-                return done("full")
+                return fallback()
 
-        # ---------------- phase I: insertions (batched or sequential) -----
-        if I_keys.size:
-            state = self._apply_insertions(state, new_keys, I_keys, n, limit,
-                                           totals, imode)
+        # ---------------- phase I: insertions -----------------------------
+        if n_ins:
+            state = self._apply_insertions(state, batch, limit, totals,
+                                           imode)
             if state is None:
-                self._full_rebuild(E_new)
-                return done("full")
+                return fallback()
 
         self._commit(*state)
-        return done("local")
+        if n_ins:
+            caps = _caps(self._ceiling, batch.I, batch.n)
+            if caps is None or bool((caps < 0).any()):
+                self._set_ceiling()     # an edge from outside it
+        return done("local", state[1])
 
     # ------------------------------------------------------- deletion phase --
-    def _apply_deletions(self, old_keys, D_keys, n, limit, totals):
+    def _apply_deletions(self, batch: _Batch, T_old, S_old, limit, totals):
         """G → G − D, built off to the side (committed state untouched).
 
-        Returns the repaired ``(g, T, S, tri)`` state tuple, or ``None`` to
-        request full fallback.  The triangle list's passes and the h-descent
-        run on the handle's device.
+        Returns the repaired ``(g, T, S, tri, incidence)`` state tuple
+        (``T``, ``S`` and ``tri`` on the handle's device), or ``None`` to
+        request full fallback.  The id maps, the CSR build, the triangle
+        list's passes, its incidence (derived from the committed one) and
+        the h-descent run on the handle's device.
         """
-        g_old, T_old, S_old, tri_old = self.g, self.T, self.S, self.tri
+        tri_old = self.tri
         dev = self.device
-        m_old = g_old.m
-        del_old = np.searchsorted(old_keys, D_keys)
-        is_del = np.zeros(m_old, bool)
-        is_del[del_old] = True
-
-        mid_keys = np.setdiff1d(old_keys, D_keys, assume_unique=True)
-        E_mid = np.stack([mid_keys // n, mid_keys % n], axis=1)
-        g_mid = build_csr(E_mid, n)
+        with trace.span("inc.csr", on=_where(dev)):
+            g_mid = prep.csr_graph(batch.delete(), batch.n, dev)
+        keep, mid_of_old = batch.keep, batch.mid_of_old
         m_mid = g_mid.m
-        mid_of_old = np.full(m_old, -1, np.int64)
-        mid_of_old[~is_del] = np.searchsorted(mid_keys, old_keys[~is_del])
 
         # triangle list and support delta (each lost row exactly once)
-        is_del_t = torch.from_numpy(is_del).to(dev)
-        mid_of_old_t = _ids(mid_of_old, dev)
-        lost_mask = is_del_t[tri_old].any(dim=1)
+        lost_mask = (~keep)[tri_old].any(dim=1)
         lost = tri_old[lost_mask]
-        tri_mid = mid_of_old_t[tri_old[~lost_mask]]
-        S_mid = S_old[~is_del].astype(np.int64)
+        tri_mid = mid_of_old[tri_old[~lost_mask]]
+        S_mid = S_old[keep]
         seeds = torch.zeros(0, dtype=torch.int64, device=dev)
         if lost.numel():
             members = lost.reshape(-1)
-            seeds = mid_of_old_t[members[~is_del_t[members]]]
-            S_mid -= torch.bincount(seeds, minlength=m_mid).cpu().numpy()
-        S_mid = S_mid.astype(np.int32)
-        T_mid = T_old[~is_del].copy()
+            seeds = mid_of_old[members[keep[members]]]
+            S_mid = S_mid - torch.bincount(seeds, minlength=m_mid)
+        T_mid = T_old[keep]
+        inc_mid = self._incidence().deleted(lost_mask, keep, tri_mid)
 
         # Deletions only lower trussness, so the old values bound the new
         # decomposition from above and the local h-index descent repairs
@@ -809,49 +1162,52 @@ class IncrementalTruss:
         if seeds.numel():
             if torch.unique(seeds).numel() > limit:
                 return None         # repair would touch too much: recompute
-            tau = _ids(T_mid, dev)
-            if not _h_descent(_Incidence(tri_mid, m_mid), tau, seeds,
-                              totals, limit):
+            if not _h_descent(inc_mid, T_mid, seeds, totals, limit):
                 return None         # descent cascaded past local_frac
-            T_mid = tau.cpu().numpy()
-        return g_mid, T_mid, S_mid, tri_mid
+        return g_mid, T_mid, S_mid, tri_mid, inc_mid
 
     # ------------------------------------------------------ insertion phase --
-    def _apply_insertions(self, state, new_keys, I_keys, n, limit, totals,
+    def _apply_insertions(self, state, batch: _Batch, limit, totals,
                           insert_mode):
         """G → G + I, built off to the side (committed state untouched).
 
         Builds the one new CSR, maps the mid-state values into the new edge
         space, and dispatches on ``insert_mode``.  Returns the repaired
-        ``(g, T, S, tri)`` state tuple, or ``None`` to request full
-        fallback.
+        ``(g, T, S, tri, incidence)`` state tuple, or ``None`` to request
+        full fallback.
         """
-        g_mid, T_mid, S_mid, tri_mid = state
-        mid_keys = edge_keys(g_mid.El[:, 0].astype(np.int64),
-                             g_mid.El[:, 1].astype(np.int64), n)
-        E_new = np.stack([new_keys // n, new_keys % n], axis=1)
-        g_new = build_csr(E_new, n)
+        _, T_mid, S_mid, tri_mid, inc_mid = state
+        dev = self.device
+        with trace.span("inc.csr", on=_where(dev)):
+            g_new = prep.csr_graph(batch.merge(), batch.n, dev)
+        new_of_mid, ins_new = batch.new_of_mid, batch.ins_new
         m_new = g_new.m
-        new_of_mid = np.searchsorted(new_keys, mid_keys)
-        ins_new = np.searchsorted(new_keys, I_keys)
 
-        T_cur = np.full(m_new, -1, np.int64)
+        T_cur = torch.full((m_new,), -1, dtype=torch.int64, device=dev)
         T_cur[new_of_mid] = T_mid
-        S_cur = np.zeros(m_new, np.int64)
+        S_cur = torch.zeros(m_new, dtype=torch.int64, device=dev)
         S_cur[new_of_mid] = S_mid
-        present = np.zeros(m_new, bool)
+        present = torch.zeros(m_new, dtype=torch.bool, device=dev)
         present[new_of_mid] = True
 
-        tri_static = _ids(new_of_mid, self.device)[tri_mid]
-        inc_static = _Incidence(tri_static, m_new)
-        insert = (self._insert_batched if insert_mode == "batched"
-                  else self._insert_sequential)
-        side_rows = insert(g_new, inc_static, ins_new, T_cur, S_cur, present,
-                           limit, totals)
+        tri_static = new_of_mid[tri_mid]
+        inc_static = inc_mid.remapped(new_of_mid, m_new, tri_static)
+        if insert_mode == "klevel":
+            side_rows = self._insert_klevel(
+                g_new, inc_static, ins_new, T_cur, S_cur, present, limit,
+                totals, _caps(self._ceiling, batch.K, batch.n))
+        else:
+            insert = (self._insert_batched if insert_mode == "batched"
+                      else self._insert_sequential)
+            T_cur, S_cur = _host(T_cur), _host(S_cur)
+            side_rows = insert(g_new, inc_static, _host(ins_new), T_cur,
+                               S_cur, _host(present), limit, totals)
         if side_rows is None:
             return None
-        tri_new = torch.cat([tri_static, _ids(side_rows, self.device)])
-        return g_new, T_cur, S_cur.astype(np.int32), tri_new
+        side_rows = _on(side_rows, dev)
+        tri_new = torch.cat([tri_static, side_rows])
+        return (g_new, T_cur, S_cur, tri_new,
+                inc_static.appended(side_rows, tri_new))
 
     def _level_regions(self, inc_static, side, seeds, T_cur, UB, present,
                        k_cap, limit, totals):
@@ -862,16 +1218,19 @@ class IncrementalTruss:
         dev = self.device
         side_t, seeds_t = _ids(side, dev), _ids(seeds, dev)
         cand = np.zeros(T_cur.shape[0], bool)
-        for k in np.unique(T_cur[present & (T_cur >= 2)]):
-            if k > k_cap:
-                break
-            allowed = torch.from_numpy(UB >= k + 1).to(dev)
-            totals["passes"] += 1
-            reach = _tri_bfs(inc_static, side_t, seeds_t,
-                             allowed).cpu().numpy()
-            cand[reach[T_cur[reach] == k]] = True
-            if int(cand.sum()) > limit:
-                return None
+        with trace.span("inc.search", levels=0, region=0):
+            for k in np.unique(T_cur[present & (T_cur >= 2)]):
+                if k > k_cap:
+                    break
+                allowed = torch.from_numpy(UB >= k + 1).to(dev)
+                totals["passes"] += 1
+                reach = _tri_bfs(inc_static, side_t, seeds_t,
+                                 allowed).cpu().numpy()
+                cand[reach[T_cur[reach] == k]] = True
+                size = int(cand.sum())
+                trace.set(levels=int(k), region=size)
+                if size > limit:
+                    return None
         return cand
 
     def _h_cap(self, side: np.ndarray, edges: np.ndarray, UB: np.ndarray,
@@ -899,7 +1258,7 @@ class IncrementalTruss:
             # triangles gained by this one insertion (partners must already
             # be present — triangles with a not-yet-inserted edge are born
             # later, at that edge's own step)
-            a, p2, p3 = triangles_through(g_new, np.array([e_i]))
+            p2, p3 = edge_triangles(g_new, e_i)
             keep = present[p2] & present[p3]
             p2, p3 = p2[keep], p3[keep]
             S_cur[e_i] += p2.shape[0]
@@ -933,6 +1292,63 @@ class IncrementalTruss:
             T_cur[A] = tau
 
         return side_rows
+
+    def _insert_klevel(self, g_new, inc_static, ins_new, T_cur, S_cur,
+                       present, limit, totals, caps=None):
+        """One insertion at a time, in key order, each against its k-level
+        region (``_klevel_region``), on one shared batch state.
+
+        Each inserted edge goes present, its triangles with present
+        partners append as ``side`` rows and add to the support, as in
+        ``_insert_sequential``; its bound is the single-insertion one, ``UB
+        = min(S + 2, T + 1)``, its own capped by its h-operator value.
+        ``caps`` (``_caps``: each new edge's trussness under the ceiling,
+        -1 where it has none) caps every bound while the graph stays under
+        the ceiling, up to the first insertion from outside it.  The
+        region is re-peeled with its exterior pinned.  ``T_cur``, ``S_cur``
+        and ``present`` are tensors on the handle's device and are mutated;
+        returns the new triangle rows there (in ``_insert_sequential``'s
+        order), or ``None`` to request full fallback.
+        """
+        dev = self.device
+        m = g_new.m
+        side = torch.zeros((0, 3), dtype=torch.int64, device=dev)
+        under = ([False] * ins_new.numel() if caps is None
+                 else (caps[ins_new] >= 0).tolist())
+        for e_i, capped in zip(ins_new.tolist(), under):
+            # one edge from outside the ceiling lifts it for the batch
+            caps = caps if capped else None
+            present[e_i] = True
+            p2, p3 = (_ids(x, dev) for x in edge_triangles(g_new, e_i))
+            keep = present[p2] & present[p3]
+            p2, p3 = p2[keep], p3[keep]
+            S_cur[e_i] += p2.numel()
+            S_cur.index_add_(0, p2, torch.ones_like(p2))
+            S_cur.index_add_(0, p3, torch.ones_like(p3))
+            rows = torch.sort(torch.stack([torch.full_like(p2, e_i), p2, p3],
+                                          dim=1), dim=1).values
+            side = torch.cat([side, rows])
+
+            UB = torch.where(T_cur >= 0, torch.minimum(S_cur + 2, T_cur + 1),
+                             S_cur + 2)
+            if caps is not None:
+                UB = torch.minimum(UB, caps)
+            UB[~present] = 0             # absent edges block every path
+            e_t = torch.tensor([e_i], device=dev)
+            UB[e_i] = torch.minimum(_h_values(_Incidence(rows, m), UB, e_t),
+                                    UB[e_t])[0]
+            with trace.span("inc.search", levels=0, region=0):
+                A = _klevel_region(inc_static, side, e_i, T_cur, UB, totals,
+                                   limit)
+                if A is not None:
+                    trace.set(levels=int(torch.unique(T_cur[A]).numel()) - 1,
+                              region=A.numel())
+            if A is None or totals["affected"] + A.numel() > limit:
+                return None    # cumulative local work past paying: recompute
+            tau = self._region_peel(g_new, inc_static, side, A, S_cur, T_cur,
+                                    totals, live_mask=present, settled=True)
+            T_cur[A] = _ids(tau, dev)
+        return side
 
     def _insert_batched(self, g_new, inc_static, ins_new, T_cur, S_cur,
                         present, limit, totals):
@@ -980,97 +1396,144 @@ class IncrementalTruss:
         return side_rows
 
     # ------------------------------------------------------------ region peel --
-    def _region_peel(self, g: CSRGraph, inc: _Incidence, side: np.ndarray,
-                     A: np.ndarray, S_vec: np.ndarray, T_fix: np.ndarray,
-                     totals, live_mask: np.ndarray | None = None):
-        """Re-peel region ``A`` with its exterior triangle partners pinned
-        at their known death level.  Returns the new peel values + 2 for
-        ``A`` (same order).  ``live_mask`` masks absent edges (insertion
-        phase).  Regions up to ``host_peel_max`` edges (with their
-        boundary) run the host mirror; larger ones ``peel_live_subset`` on
-        the device, K2 with the boundary pinned on the kernel path."""
+    def _region_peel(self, g: CSRGraph, inc: _Incidence, side, A, S_vec,
+                     T_fix, totals, live_mask=None, settled: bool = False):
+        """Re-peel region ``A`` (sorted edge ids) with its exterior triangle
+        partners pinned at their known death level.  Returns the new peel
+        values + 2 for ``A`` (same order), a host array.  ``live_mask``
+        masks absent edges (insertion phase).  ``side``, ``A``, ``S_vec``,
+        ``T_fix`` and ``live_mask`` are host arrays or tensors; the rows,
+        the boundary and the gathers run on the handle's device.  Regions
+        up to ``host_peel_max`` edges (with their boundary) run the host
+        mirror; larger ones ``peel_live_subset`` (the kernel executor on a
+        card from ``prep.DEVICE_COMPACT_MIN_ROWS`` edges:
+        ``pkt.peel_rows_device``, from the device's copies), K2 with the
+        boundary pinned on the kernel path.  One ``inc.region_peel`` span
+        (``on``, ``edges``, ``pinned``).
+
+        With ``settled`` (an insertion, whose region's trussness can only
+        rise from ``T_fix``), a triangle with an exterior edge of
+        trussness below every region member's ``T_fix`` (2 for a new edge)
+        is left out, and its members' start S lowered: that edge belongs
+        to no truss that decides a member's value, so neither does the
+        triangle, and the values come out the same with a smaller
+        boundary."""
         m = g.m
         dev = self.device
-        A_t = _ids(A, dev)
-        rows = inc.tri[torch.unique(inc.rows_of(A_t))]
-        if side.size:
-            side_t = _ids(side, dev)
-            rows = torch.cat([rows, side_t[torch.isin(side_t, A_t)
-                                           .any(dim=1)]])
-        if live_mask is not None and rows.numel():
-            rows = rows[torch.from_numpy(live_mask).to(dev)[rows].all(dim=1)]
-        in_A = np.zeros(m, bool)
-        in_A[A] = True
-        flat = rows.reshape(-1)
-        boundary = torch.unique(
-            flat[~torch.from_numpy(in_A).to(dev)[flat]]).cpu().numpy()
-        totals["affected"] += int(A.size)
-        totals["boundary"] += int(boundary.size)
+        with trace.span("inc.region_peel"):
+            A_t = _on(A, dev)
+            in_A = torch.zeros(m, dtype=torch.bool, device=dev)
+            in_A[A_t] = True
+            rows = inc.tri[_distinct(inc.rows_of(A_t), inc.tri.shape[0])]
+            side_t = _on(side, dev).reshape(-1, 3)
+            if side_t.numel():
+                rows = torch.cat([rows, side_t[in_A[side_t].any(dim=1)]])
+            if live_mask is not None and rows.numel():
+                rows = rows[_on(live_mask, dev)[rows].all(dim=1)]
+            T_all = _on(T_fix, dev)
+            S_all = _on(S_vec, dev)
+            drop = None
+            if settled and rows.numel():
+                T_rows = T_all[rows]
+                ext = ~in_A[rows]
+                big = torch.iinfo(T_rows.dtype).max
+                drop = (torch.where(ext, T_rows, big).amin(dim=1)
+                        < torch.where(ext, big, T_rows.clamp(min=2))
+                        .amin(dim=1))
+            flat = (rows if drop is None else rows[~drop]).reshape(-1)
+            boundary = _distinct(flat[~in_A[flat]], m)
+            L = _distinct(torch.cat([A_t, boundary]), m)
+            if drop is not None:
+                # a left-out triangle whose edges all stay in the local edge
+                # space is one of its triangles all the same (the device
+                # rung peels every triangle among those edges): keep it
+                in_L = torch.zeros(m, dtype=torch.bool, device=dev)
+                in_L[L] = True
+                drop &= ~in_L[rows].all(dim=1)
+                gone = rows[drop][~ext[drop]]
+                S_all = S_all - torch.bincount(gone, minlength=m)
+                rows = rows[~drop]
+            n_A, n_b, n_L = A_t.numel(), boundary.numel(), L.numel()
+            totals["affected"] += n_A
+            totals["boundary"] += n_b
 
-        L = np.union1d(A, boundary)
-        on_host = L.shape[0] <= self.host_peel_max
-        chaos = fault_point("region", rung="host" if on_host else self.mode)
-        S0 = np.where(in_A[L], S_vec[L], T_fix[L] - 2)
-        if on_host:
-            # compact host path: local ids preserve the global id order, so
-            # the tie-break picks the same winners
-            lmap = np.full(m, -1, np.int64)
-            lmap[L] = np.arange(L.shape[0])
-            S_fin = _host_peel(L.shape[0], lmap[rows.cpu().numpy()],
-                               S0, np.ones(L.shape[0], bool), ~in_A[L])
-            tau_L = S_fin + 2
-        else:
-            # larger regions reuse the live-edge compaction machinery: the
-            # region is gathered into a compacted edge space — work bounded
-            # by |L|, not m — with boundary edges pinned at their death level
-            S_fin = peel_live_subset(
-                g.El, L, S0, ~in_A[L], chunk=self.chunk, mode=self.mode,
-                table_mode=self.table_mode, compact_frac=self.compact_frac,
-                compact_min=self.compact_min, device=dev)
+            on_host = n_L <= self.host_peel_max
+            trace.set(on="host" if on_host else dev.type, edges=n_A,
+                      pinned=n_b)
+            chaos = fault_point("region",
+                                rung="host" if on_host else self.mode)
+            pinned = ~in_A[L]
+            T_L = T_all[L]
+            S0 = torch.where(pinned, T_L - 2, S_all[L])
+            pinned_np, L_np = _host(pinned), _host(L)
+            if on_host:
+                # compact host path: local ids preserve the global id order,
+                # so the tie-break picks the same winners
+                lmap = torch.full((m,), -1, dtype=torch.int64, device=dev)
+                lmap[L] = torch.arange(n_L, device=dev)
+                S_fin = _host_peel(n_L, _host(lmap[rows]), _host(S0),
+                                   np.ones(n_L, bool), pinned_np)
+            elif self.mode == "kernel" and prep.compacts_on_device(n_L, dev):
+                # larger regions reuse the live-edge compaction machinery:
+                # the region is gathered into a compacted edge space — work
+                # bounded by |L|, not m — with boundary edges pinned at their
+                # death level; built on the card from its copy of the edges
+                S_fin = _pkt_mod.peel_rows_device(
+                    g.device_arrays(dev)["El"][L].to(torch.int64), S0,
+                    pinned, compact_frac=self.compact_frac,
+                    compact_min=self.compact_min)
+            else:
+                S_fin = peel_live_subset(
+                    g.El, L_np, _host(S0), pinned_np, chunk=self.chunk,
+                    mode=self.mode, table_mode=self.table_mode,
+                    compact_frac=self.compact_frac,
+                    compact_min=self.compact_min, device=dev)
             tau_L = S_fin.astype(np.int64) + 2
-        self.region_peels["host" if on_host else "device"] += 1
-        if chaos == "corrupt" and boundary.size:
-            # injected corruption (testing/chaos.py): bump one pinned slot so
-            # the replay invariant below is guaranteed to trip, without ever
-            # letting a wrong value reach committed state
-            tau_L = tau_L.copy()
-            tau_L[np.searchsorted(L, boundary[0])] += 1
-        # replay invariant: pinned edges must die exactly at their schedule.
-        # A real raise (not an assert, which -O strips): a violation means
-        # the re-peel would commit corrupt trussness into the handle.
-        if not np.array_equal(tau_L[~in_A[L]], T_fix[boundary]):
-            raise IntegrityError(
-                "incremental re-peel integrity violation: a pinned boundary "
-                "edge left its death level — please report this graph")
-        return tau_L[np.searchsorted(L, A)]
+            self.region_peels["host" if on_host else "device"] += 1
+            if chaos == "corrupt" and n_b:
+                # injected corruption (testing/chaos.py): bump one pinned
+                # slot so the replay invariant below is guaranteed to trip,
+                # without ever letting a wrong value reach committed state
+                tau_L = tau_L.copy()
+                tau_L[np.searchsorted(L_np, int(boundary[0]))] += 1
+            # replay invariant: pinned edges must die exactly at their
+            # schedule.  A real raise (not an assert, which -O strips): a
+            # violation means the re-peel would commit corrupt trussness
+            # into the handle.
+            if not np.array_equal(tau_L[pinned_np], _host(T_L[pinned])):
+                raise IntegrityError(
+                    "incremental re-peel integrity violation: a pinned "
+                    "boundary edge left its death level — please report "
+                    "this graph")
+            return tau_L[np.searchsorted(L_np, _host(A_t))]
 
     # ---------------------------------------------------------- internals --
-    def _hier_update(self, old_keys, I_keys, T_old, posn, ok, kn) -> None:
+    def _hier_update(self, old_to_new: np.ndarray, T_old: np.ndarray,
+                     ins_new: np.ndarray) -> None:
         """Carry the community index across a *local* repair (DESIGN.md §11).
 
-        ``k_hi`` is the maximum trussness involved in any insertion,
-        deletion, or trussness change (old or new value).  Levels above
-        ``k_hi`` keep their exact partition — only edge ids shifted — so
-        they are remapped in O(m); levels at or below come back dirty and
-        rebuild lazily on next query.
+        ``old_to_new`` maps each old edge id to its new one (-1: deleted),
+        ``ins_new`` holds the inserted edges' new ids.  ``k_hi`` is the
+        maximum trussness involved in any insertion, deletion, or trussness
+        change (old or new value).  Levels above ``k_hi`` keep their exact
+        partition — only edge ids shifted — so they are remapped in O(m);
+        levels at or below come back dirty and rebuild lazily on next
+        query.
         """
-        m_before = old_keys.shape[0]
-        m_after = self.g.m
-        if m_after == 0 or kn is None or self._hier is None:
+        if self.g.m == 0 or self._hier is None:
             self._hier = None
             return
+        ok = old_to_new >= 0
         k_hi = 1
         if (~ok).any():                      # deletions: old death levels
             k_hi = max(k_hi, int(T_old[~ok].max()))
-        t_new = self.T[posn[ok]]
+        t_new = self.T[old_to_new[ok]]
         t_old = T_old[ok]
         diff = t_new != t_old
         if diff.any():                       # changed: both old and new
             k_hi = max(k_hi, int(t_old[diff].max()), int(t_new[diff].max()))
-        if I_keys.size:                      # insertions: their new levels
-            k_hi = max(k_hi, int(self.T[np.searchsorted(kn, I_keys)].max()))
-        old_to_new = np.full(m_before, -1, np.int64)
-        old_to_new[np.nonzero(ok)[0]] = posn[ok]
+        if ins_new.size:                     # insertions: their new levels
+            k_hi = max(k_hi, int(self.T[ins_new].max()))
         self._hier = self._hier.remapped(self.T, self.triangles, old_to_new,
                                          k_hi)
 
@@ -1082,46 +1545,95 @@ class IncrementalTruss:
         hi = np.maximum(batch[:, 0], batch[:, 1])
         return np.unique(edge_keys(lo, hi, n))
 
-    def _commit(self, g_new: CSRGraph, T_new: np.ndarray, S_new: np.ndarray,
-                tri_new: torch.Tensor) -> None:
+    def _commit(self, g_new: CSRGraph, T_new, S_new, tri_new: torch.Tensor,
+                inc: _Incidence | None = None) -> None:
+        """Make ``(g, T, S, tri)`` the handle's state.  ``T`` and ``S`` come
+        as host arrays or tensors and are kept on the host; tensors on the
+        handle's device are kept as its device copies too, which the next
+        batch starts from (``check_invariants`` drops them, so the next
+        batch starts from the host state it checked).  ``inc``, the
+        incidence of ``tri``, is kept for the next batch."""
         self.g = g_new
-        self.T = T_new.astype(np.int64)
-        self.S = S_new.astype(np.int32)
+        self.T = _host(T_new).astype(np.int64, copy=False)
+        self.S = _host(S_new.to(torch.int32) if isinstance(
+            S_new, torch.Tensor) else S_new).astype(np.int32, copy=False)
         #: the (T, 3) int64 triangle list, kept on the handle's device
         self.tri = tri_new.to(self.device, torch.int64)
+        self._inc = inc if inc is not None and inc.tri is tri_new else None
+        on_dev = (isinstance(T_new, torch.Tensor)
+                  and T_new.device == self.device)
+        self._dev_TS = ((T_new, S_new.to(torch.int64)) if on_dev
+                        and isinstance(S_new, torch.Tensor) else None)
+
+    def _set_ceiling(self) -> None:
+        """Make the committed graph the handle's ceiling: its keys and a
+        copy of its trussness on the handle's device.  Set at every full
+        rebuild and after every batch that inserts an edge the ceiling
+        lacks; deletions keep the graph under it."""
+        arr = self.g.device_arrays(self.device)
+        self._ceiling = (self.n, prep.edge_keys(arr["u"], arr["v"], self.n),
+                         self._device_state()[0].clone())
+
+    def _device_state(self) -> tuple[torch.Tensor, torch.Tensor]:
+        """Trussness and support as int64 tensors on the handle's device:
+        the copies the last batch committed, or uploaded."""
+        if self._dev_TS is None:
+            self._dev_TS = (_ids(self.T, self.device),
+                            torch.from_numpy(self.S).to(self.device).to(
+                                torch.int64))
+        return self._dev_TS
+
+    def _incidence(self) -> _Incidence:
+        """The edge → triangle-row incidence of the committed triangle
+        list: the one the last batch derived, or built (a sort)."""
+        if self._inc is None or self._inc.tri is not self.tri:
+            self._inc = _Incidence(self.tri, self.g.m)
+        return self._inc
 
     def _full_rebuild(self, E: np.ndarray) -> None:
-        """From-scratch decomposition through the standard (KCO) pipeline:
-        K1 and K2 on the card under the default executors."""
+        """From-scratch decomposition of the canonical key-sorted edges
+        ``E`` through the one-shot path: ``prep.prepare`` (on the card from
+        ``prep.DEVICE_PREP_MIN_ROWS`` rows), ``pkt`` (K1 and the fused loop
+        on the card under the default executors) and ``prep.align``.  The
+        handle's own CSR (vertex ids as given) is built where the
+        preprocessing runs.  One ``inc.rebuild`` span (``m``)."""
         self._hier = None        # full rebuild: community index rebuilt lazily
-        with trace.collect() as recorded:
-            g = build_csr(E, self.n)
+        dev = self.device
+        with trace.span("inc.rebuild", m=len(E)):
+            t0 = time.perf_counter()
+            if len(E) and prep.on_device(len(E), dev):
+                E_t = _ids(E, dev)
+                g = prep.csr_graph(prep.edge_keys(E_t[:, 0], E_t[:, 1],
+                                                  self.n), self.n, dev)
+            else:
+                g = build_csr(E, self.n)
             if g.m == 0:
                 self.open_phases = {}
                 self._commit(g, np.zeros(0, np.int64), np.zeros(0, np.int32),
-                             _triangle_rows(g, self.device))
+                             _triangle_rows(g, dev))
+                self._set_ceiling()
                 return
-            # keys: each row of g.El in the relabelled id space
-            gr, keys = order_and_build(E, g.El[:, 0], g.El[:, 1], self.n,
-                                       reorder=True)
-        t_prep = trace.seconds(recorded, PREPROCESS_SPANS)
-        res = pkt(gr, chunk=self.chunk, mode=self.mode,
-                  support_mode=self.support_mode, table_mode=self.table_mode,
-                  compact_frac=self.compact_frac,
-                  compact_min=self.compact_min, phase_timings=True,
-                  device=self.device)
-        T = align_to_input(res.trussness, gr, None, self.n, keys=keys)
-        S = align_to_input(res.support, gr, None, self.n, keys=keys)
-        t0 = time.perf_counter()
-        tri = _triangle_rows(g, self.device)
-        synchronize(self.device)
-        #: phase breakdown of the most recent full (re)build: ``pkt``'s
-        #: {tables, support, peel, compact} seconds, plus the host
-        #: preprocessing (the ``csr.*`` spans: CSR builds, degeneracy order,
-        #: relabelling) and the triangle list
-        self.open_phases = dict(res.phases or {}, preprocess=t_prep,
-                                triangle_list=time.perf_counter() - t0)
-        self._commit(g, T, S.astype(np.int32), tri)
+            # row_keys: each row of E (= g.El) in the relabelled id space
+            gr, n, row_keys = prep.prepare(E, device=dev)
+            t_prep = time.perf_counter() - t0
+            res = _pkt_mod.pkt(
+                gr, chunk=self.chunk, mode=self.mode,
+                support_mode=self.support_mode, table_mode=self.table_mode,
+                compact_frac=self.compact_frac, compact_min=self.compact_min,
+                phase_timings=True, device=dev)
+            T = prep.align(res.trussness, gr, n, row_keys, dev)
+            S = prep.align(res.support, gr, n, row_keys, dev)
+            t0 = time.perf_counter()
+            tri = _triangle_rows(g, dev)
+            synchronize(dev)
+            #: phase breakdown of the most recent full (re)build: ``pkt``'s
+            #: {tables, support, peel, compact} seconds, plus the
+            #: preprocessing (the handle's CSR and ``prep.prepare``) and the
+            #: triangle list
+            self.open_phases = dict(res.phases or {}, preprocess=t_prep,
+                                    triangle_list=time.perf_counter() - t0)
+            self._commit(g, T, S.astype(np.int32), tri)
+            self._set_ceiling()
 
     def check_invariants(self, *, sample: int = 64, seed: int = 0) -> int:
         """Cheap consistency check over a sampled edge set (DESIGN.md §15).
@@ -1131,7 +1643,8 @@ class IncrementalTruss:
         count in the triangle list; ``2 <= T[e] <= S[e] + 2``; the truss
         h-operator fixpoint ``T[e] == h(T)[e]``; and sampled triangle rows
         are strictly increasing and in range.  It is *sampled*, not a
-        proof: ``verify()`` remains the full oracle.
+        proof: ``verify()`` remains the full oracle.  The next batch starts
+        from the host trussness and support it checked.
 
         Returns:
             The number of edges checked.
@@ -1140,6 +1653,7 @@ class IncrementalTruss:
             IntegrityError: any check fails (heal with :meth:`rebuild`).
         """
         m = self.g.m
+        self._dev_TS = None     # the next batch starts from what is checked
         if m == 0:
             return 0
         if sample >= m:

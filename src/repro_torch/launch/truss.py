@@ -23,7 +23,7 @@ from-scratch ``truss_pkt``:
 
   PYTHONPATH=src python -m repro_torch.launch.truss --graph rmat-small \
       --update-stream 16 --churn 0.01 \
-      [--insert-mode batched|sequential] [--verify]
+      [--insert-mode batched|sequential|klevel] [--verify]
 
 Community serving (DESIGN.md §11): build the triangle-connected k-truss
 community index on the handle and answer queries at level k; ``--verify``

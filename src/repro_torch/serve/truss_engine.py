@@ -260,7 +260,8 @@ class TrussEngine:
             device (§10); "numpy" is the host parity oracle.
         hier_mode: community-index builder for handles (§11).
         insert_mode: handle insertion repair strategy ("batched" /
-            "sequential", §13); bitwise-identical results.
+            "sequential" / "klevel", §13); bitwise-identical trussness and
+            support.
         chunk: peel chunk size (rounded up to pow2). ``None`` (default)
             derives it from the table size (``wedge_common.auto_chunk``).
         reorder: degeneracy-reorder each submission before decomposition.

@@ -383,3 +383,49 @@ def test_truss_pkt_preprocesses_on_the_card_from_its_threshold(card):
     assert pre[0].attrs["core_sublevels"] > 0
     assert pre[1].attrs["core_sublevels"] > 0
     assert pre[2].attrs["core_sublevels"] == 0
+
+
+def test_klevel_handle_toggles_equal_the_cpu(card):
+    """A live scale-14 R-MAT handle under ``insert_mode="klevel"`` on the
+    card, against the same handle on the CPU, over a toggle script (four
+    pools of 8 edges, each deleted and put back): after every batch the
+    mode, the counts, the edges, the trussness, the support and the
+    triangle rows (order included) are equal, and the trussness equals a
+    from-scratch ``truss_pkt``.  On the card the open preprocesses there,
+    and each batch's key algebra and CSR builds run there (``inc.csr``
+    ``on="cuda"``); both re-peel the same regions on the same rungs."""
+    from repro_torch.core.truss_inc import IncrementalTruss
+
+    E = GRAPHS["rmat14"]()
+    rng = np.random.default_rng(14)
+    pools = E[rng.choice(len(E), 32, replace=False)].reshape(4, 8, 2)
+    trace.enable()
+    try:
+        gpu = IncrementalTruss(E, insert_mode="klevel", device=card)
+        opened = trace.spans()
+        trace.clear()
+        cpu = IncrementalTruss(E, insert_mode="klevel", device="cpu")
+        for pool in pools:
+            for batch in (dict(remove_edges=pool), dict(add_edges=pool)):
+                trace.clear()
+                s1 = gpu.update(**batch)
+                spans = trace.spans()
+                s2 = cpu.update(**batch)
+                for f in ("mode", "m_after", "inserted", "deleted",
+                          "affected", "boundary", "rounds", "changed"):
+                    assert getattr(s1, f) == getattr(s2, f), f
+                for f in ("edges", "trussness", "support", "triangles"):
+                    assert np.array_equal(getattr(gpu, f), getattr(cpu, f))
+                assert np.array_equal(gpu.trussness,
+                                      pkt_mod.truss_pkt(gpu.edges,
+                                                        device=card))
+                csr = [sp for sp in spans if sp.name == "inc.csr"]
+                assert csr and all(sp.attrs["on"] == "cuda" for sp in csr)
+    finally:
+        trace.disable()
+        trace.clear()
+    pre = [sp for sp in opened if sp.name == "pkt.preprocess"]
+    assert [sp.attrs["on"] for sp in pre] == ["cuda"]
+    assert [sp.name for sp in opened if sp.name.startswith("inc.")] == \
+        ["inc.rebuild"]
+    assert gpu.region_peels == cpu.region_peels

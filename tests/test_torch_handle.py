@@ -169,3 +169,28 @@ def test_engine_validation():
     h = eng.open(ring_of_cliques_edges(3, 4), insert_mode="batched")
     assert h.insert_mode == "batched"
     assert eng.open(ring_of_cliques_edges(3, 4)).insert_mode == "sequential"
+
+
+def test_klevel_handle_toggles_through_the_engine():
+    """The live-graph deployment's path: ``open(..., insert_mode="klevel")``
+    then batches that delete edges and put them back through ``update``,
+    each answer (``handle.trussness``) equal to a from-scratch
+    decomposition of the handle's edges, every batch local; the community
+    index carried across them agrees with a fresh one."""
+    E = _er(80, 0.12, 11)
+    eng = TrussEngine(device=CPU)
+    h = eng.open(E, insert_mode="klevel")
+    assert h.insert_mode == "klevel"
+    rng = np.random.default_rng(11)
+    pools = [E[rng.choice(len(E), 6, replace=False)] for _ in range(2)]
+    h.communities(4)
+    for pool in pools * 2:
+        for batch in (dict(remove_edges=pool), dict(add_edges=pool)):
+            st = eng.update(h, **batch)
+            assert st.mode == "local" and st.handle is h
+            assert np.array_equal(h.trussness,
+                                  truss_pkt(h.edges, device=CPU))
+            fresh = h.hierarchy(mode="host")
+            assert [c.tolist() for c in h.communities(4)] == \
+                [h.edges[ids].tolist() for ids in fresh.communities(4)]
+    assert eng.stats["updates_local"] == 8

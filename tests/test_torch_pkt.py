@@ -588,8 +588,9 @@ def test_device_compaction_matches_reference(name, rule, monkeypatch):
 
 @pytest.mark.parametrize("rule", sorted(DEVICE_RULES))
 def test_peel_live_subset_device_compaction_with_pinned(rule, monkeypatch):
-    """The region peel with pinned edges, its later compactions built on
-    the device (here the CPU), equals the reference's."""
+    """The region peel with pinned edges, its subproblem ("always") and its
+    later compactions built on the device (here the CPU), equals the
+    reference's."""
     E = GRAPHS["ba"]
     g = ref_build(E)
     S0 = ref_pkt.pkt(g).support
@@ -603,3 +604,41 @@ def test_peel_live_subset_device_compaction_with_pinned(rule, monkeypatch):
     got = port_pkt.peel_live_subset(g.El, live, S0[live], pinned,
                                     mode="kernel", device="cpu", **kwargs)
     assert np.array_equal(got, want)
+
+
+@pytest.mark.parametrize("pinned", [False, True])
+@pytest.mark.parametrize("name", sorted(GRAPHS))
+def test_subset_problem_built_on_the_device_equals_host(name, pinned):
+    """``peel_live_subset``'s device build (``_device_problem`` over the
+    subset's rows, here on the CPU) equals ``_make_subproblem``'s host
+    build field for field."""
+    import torch
+
+    g = port_build(GRAPHS[name])
+    S0 = port_pkt.pkt(g, device="cpu").support
+    rng = np.random.default_rng(len(name) + 1)
+    live = np.sort(rng.choice(g.m, size=2 * g.m // 3, replace=False))
+    pin = rng.random(live.shape[0]) < 0.25 if pinned else None
+    k = live.shape[0]
+    want = port_pkt._make_subproblem(
+        g.El[live], np.arange(k), S0[live], pin, chunk_req=None,
+        table_mode="device", mode="kernel", device=torch.device("cpu"))
+    rows = torch.from_numpy(g.El[live].astype(np.int64))
+    got = port_pkt._device_problem(
+        rows[:, 0], rows[:, 1], torch.from_numpy(S0[live]), torch.arange(k),
+        None if pin is None else torch.from_numpy(pin), g.n)
+    assert (got["m"], got["live"], got["iters"]) == \
+        (want["m"], want["live"], want["iters"])
+    assert (got["tabs"].work_cap, got["tabs"].peel_rows) == \
+        (want["tabs"].work_cap, want["tabs"].peel_rows)
+    pairs = {f: (got[f], want[f]) for f in ("N", "Eid", "S_ext0",
+                                            "processed0")}
+    pairs.update({f: (getattr(got["tabs"], f), getattr(want["tabs"], f))
+                  for f in ("u", "v", "Es")})
+    pairs["ids"] = (got["ids"], torch.from_numpy(want["ids"]))
+    for f, (a, b) in pairs.items():
+        assert a.dtype == b.dtype and torch.equal(a, b), f
+    assert (got["pinned"] is None) == (want["pinned"] is None) == \
+        (not pinned)
+    if pinned:
+        assert torch.equal(got["pinned"], want["pinned"])

@@ -375,3 +375,69 @@ def test_one_shot_spans_nest_and_carry_their_counts():
     loops = [sp for sp in spans if sp.name == "pkt.loop"]
     assert len(loops) > 1
     assert all(sp.attrs["blocks"] == 0 for sp in loops)
+
+
+#: the spans of a live handle's update (``core/truss_inc.py``)
+INC_SPANS = {"inc.update", "inc.delete", "inc.search", "inc.region_peel",
+             "inc.csr", "inc.rebuild"}
+
+
+def _inc_spans(spans):
+    return [sp for sp in spans if sp.name.startswith("inc.")]
+
+
+@pytest.mark.parametrize("local_frac", [1.0, 0.0])
+def test_update_spans_record_the_repair_s_steps(local_frac):
+    """One ``klevel`` update that deletes and puts back edges of a ring of
+    cliques: a local repair records exactly ``inc.update`` (with its
+    counts), ``inc.csr``, ``inc.delete``, ``inc.search`` and
+    ``inc.region_peel``; a forced fallback (``local_frac`` 0) records
+    ``inc.update``, ``inc.csr``, ``inc.delete`` and ``inc.rebuild``; every
+    one of them under the ``inc.update`` span.  Opening the handle is one
+    ``inc.rebuild`` span."""
+    from repro_torch.core.truss_inc import IncrementalTruss
+
+    E = ring_of_cliques_edges(4, 5)
+    trace.enable()
+    inc = IncrementalTruss(E, insert_mode="klevel", local_frac=local_frac,
+                           device="cpu")
+    opened = _inc_spans(trace.spans())
+    assert [sp.name for sp in opened] == ["inc.rebuild"]
+    assert opened[0].attrs == {"m": len(E)}
+    trace.clear()
+    st = inc.update(add_edges=np.array([[0, 7], [1, 11]]),
+                    remove_edges=E[:2])
+    spans = _inc_spans(trace.spans())
+    names = {sp.name for sp in spans}
+    if local_frac:
+        assert st.mode == "local"
+        assert names == INC_SPANS - {"inc.rebuild"}
+    else:
+        assert st.mode == "full"
+        assert names == {"inc.update", "inc.csr", "inc.delete",
+                         "inc.rebuild"}
+    (up,) = [sp for sp in spans if sp.name == "inc.update"]
+    assert up.parent is None
+    assert up.attrs == {"insert_mode": "klevel", "mode": st.mode,
+                        "inserted": st.inserted, "deleted": st.deleted,
+                        "affected": st.affected, "boundary": st.boundary,
+                        "rounds": st.rounds}
+    by_id = {sp.id: sp for sp in trace.spans()}
+    for sp in spans:
+        if sp is not up:
+            p = sp
+            while p.parent is not None:
+                p = by_id[p.parent]
+            assert p is up, sp.name
+    for sp in spans:
+        if sp.name == "inc.csr":
+            assert sp.attrs == {"on": "host"}
+        if sp.name == "inc.region_peel":
+            assert sp.attrs["on"] == "host" and sp.attrs["edges"] >= 1
+            assert "pinned" in sp.attrs
+        if sp.name == "inc.search":
+            assert sp.attrs["region"] >= 1 and sp.attrs["levels"] >= 0
+    # ``affected`` also counts the deletions' descent
+    peeled = sum(sp.attrs["edges"] for sp in spans
+                 if sp.name == "inc.region_peel")
+    assert (0 < peeled <= st.affected) if local_frac else peeled == 0
