@@ -7,11 +7,13 @@ for it.  PKT itself is "based on a recently proposed algorithm for k-core
 decomposition" (ParK):
 
   - ``kcore_numpy``: Batagelj–Zaversnik bucket peeling, O(n + m). Oracle.
-  - ``kcore_park``:  ParK-style level-synchronous peeling in torch ops —
-    the same curr/next frontier pattern PKT uses, over vertices, with the
-    loops on the host (one read per sub-level).  Its peel, ``peel_cores``,
-    takes device arrays: ``core/prep.py`` runs it on slots that never left
-    the card.
+  - ``kcore_park``:  ParK-style level-synchronous peeling — the same
+    curr/next frontier pattern PKT uses, over vertices.  ``coreness`` runs
+    it over a CSR on the tensors' device: on a CUDA device as one
+    cooperative launch (``kernels/kcore.py: core_loop``), elsewhere as
+    ``peel_cores``, torch ops with the loops on the host (one read per
+    sub-level), which is also the kernel's oracle.  ``core/prep.py`` runs
+    it on rows that never left the card.
 """
 
 from __future__ import annotations
@@ -21,6 +23,7 @@ import torch
 
 from repro_torch.device import resolve_device
 from repro_torch.graphs.csr import CSRGraph
+from repro_torch.kernels import kcore as kcore_kernel
 
 
 def kcore_numpy(g: CSRGraph) -> np.ndarray:
@@ -72,20 +75,31 @@ def kcore_numpy(g: CSRGraph) -> np.ndarray:
 def kcore_park(g: CSRGraph, *, device="cuda") -> np.ndarray:
     """ParK-style k-core; returns coreness per vertex (int32).
 
-    ``peel_cores`` over the graph's CSR slots on ``device``: "cuda" (the
-    default; raises when no card is present) or "cpu".
+    ``coreness`` over the graph's CSR on ``device``: "cuda" (the default;
+    raises when no card is present) or "cpu".
     """
     device = resolve_device(device)
-    n = g.n
-    if n == 0:
+    if g.n == 0:
         return np.zeros(0, np.int32)
-    N = g.device_arrays(device)["N"]
-    deg = torch.tensor(g.degrees, device=device)
+    arrays = g.device_arrays(device)
+    return coreness(arrays["Es"], arrays["N"]).core.cpu().numpy()
+
+
+def coreness(Es: torch.Tensor, N: torch.Tensor) -> kcore_kernel.CoreResult:
+    """Every vertex's coreness from the int32 CSR ``(Es, N)`` on its
+    device (row ``v`` is ``N[Es[v]:Es[v+1]]``, each undirected edge a slot
+    each way): ``kernels.kcore.core_loop`` on a CUDA device, one launch and
+    one host read; ``peel_cores`` elsewhere, one read a sub-level.  Both
+    run the same sub-levels and give the coreness as int32."""
+    if Es.device.type == "cuda":
+        return kcore_kernel.core_loop(Es, N)
+    kcore_kernel.COUNTS.ran_plain()
+    deg = Es[1:] - Es[:-1]
     row_of_slot = torch.repeat_interleave(
-        torch.arange(n, dtype=torch.int32, device=device),
+        torch.arange(deg.shape[0], dtype=torch.int32, device=Es.device),
         deg.to(torch.int64), output_size=N.shape[0])
-    core, _ = peel_cores(N, row_of_slot, deg)
-    return core.cpu().numpy()
+    core, subs = peel_cores(N, row_of_slot, deg)
+    return kcore_kernel.CoreResult(core, subs, subs, 0)
 
 
 def peel_cores(nbr: torch.Tensor, row_of_slot: torch.Tensor,

@@ -15,7 +15,8 @@ It is written twice, with one result, bit for bit:
     canonicalize themselves: the engine's ``submit``, the handle's full
     rebuild, the CLI) and ``preprocess`` (all four);
   * on a device (``preprocess_device``): sorts and scans, the k-core by
-    ``kcore.peel_cores`` over the canonical edges' slots, the row keys left
+    ``kcore.coreness`` over the canonical edges' CSR (one cooperative
+    launch on a card, ``kcore.peel_cores`` elsewhere), the row keys left
     on the device for ``align_device``.  Only the five CSR arrays come back
     to the host, into an ordinary ``CSRGraph`` whose device cache already
     holds them.
@@ -33,7 +34,7 @@ import numpy as np
 import torch
 
 from repro_torch import trace
-from repro_torch.core.kcore import kcore_numpy, peel_cores
+from repro_torch.core.kcore import coreness, kcore_numpy
 from repro_torch.device import resolve_device
 from repro_torch.graphs.csr import (_MAX_N, MAX_PACK_N, CSRGraph, build_csr,
                                     canonical_edges_with_rows,
@@ -151,15 +152,19 @@ def _upload(edges, device: torch.device):
 
 def _coreness_perm(E_lo, E_hi, n: int):
     """``degeneracy_order`` on the device: ``perm[v]`` = rank of ``v`` by
-    (coreness, id), and the k-core's sub-level count."""
+    (coreness, id), and ``kcore.coreness``'s result.  Its CSR is the
+    canonical edges' slots grouped by vertex (one sort of the slots' rows;
+    the order within a row is free)."""
     src = torch.cat([E_lo, E_hi]).to(torch.int32)
     dst = torch.cat([E_hi, E_lo]).to(torch.int32)
-    deg = torch.bincount(src, minlength=n).to(torch.int32)
-    core, subs = peel_cores(dst, src, deg)
-    order = torch.sort(core, stable=True).indices
-    perm = torch.empty(n, dtype=torch.int64, device=core.device)
-    perm[order] = torch.arange(n, device=core.device)
-    return perm, subs
+    Es = torch.zeros(n + 1, dtype=torch.int32, device=src.device)
+    torch.cumsum(torch.bincount(src, minlength=n), 0, dtype=torch.int32,
+                 out=Es[1:])
+    res = coreness(Es, dst[torch.sort(src).indices])
+    order = torch.sort(res.core, stable=True).indices
+    perm = torch.empty(n, dtype=torch.int64, device=src.device)
+    perm[order] = torch.arange(n, device=src.device)
+    return perm, res
 
 
 def csr_arrays(u: torch.Tensor, v: torch.Tensor, n: int) -> dict:
@@ -204,8 +209,10 @@ def preprocess_device(edges, *, reorder: bool = True, device="cuda"):
     it field for field, with ``row_keys`` an int64 tensor on ``device``.
 
     Spans ``prep.canonical``, ``prep.order`` and ``prep.build`` (``m``),
-    and puts the k-core's sub-level count on the enclosing span as
-    ``core_sublevels``.  Raises ``check_edge_array``'s ``ValueError`` on
+    and puts the k-core's sub-level count and its blocking reads of the
+    device on the enclosing span as ``core_sublevels`` and
+    ``core_host_reads`` (1 for the card's one launch, one a sub-level for
+    ``peel_cores``).  Raises ``check_edge_array``'s ``ValueError`` on
     rows it rejects.
     """
     device = resolve_device(device)
@@ -223,14 +230,15 @@ def preprocess_device(edges, *, reorder: bool = True, device="cuda"):
     if reorder:
         with trace.span("prep.order", m=K.shape[0]):
             E_lo, E_hi = K // n, K % n
-            perm, subs = _coreness_perm(E_lo, E_hi, n)
+            perm, core = _coreness_perm(E_lo, E_hi, n)
             rl, rh = perm[E_lo], perm[E_hi]
             K = torch.sort(edge_keys(torch.minimum(rl, rh),
                                      torch.maximum(rl, rh), n)).values
             rl, rh = perm[lo], perm[hi]
             row_keys = edge_keys(torch.minimum(rl, rh),
                                  torch.maximum(rl, rh), n)
-        trace.set(core_sublevels=subs)
+        trace.set(core_sublevels=core.sublevels,
+                  core_host_reads=core.host_reads)
     with trace.span("prep.build", m=K.shape[0]):
         g = csr_graph(K, n, device)
     return g, n, row_keys
@@ -277,12 +285,12 @@ def prepare(edges, *, reorder: bool = True, device: torch.device):
     (``row_keys`` then a tensor there) and on the host otherwise.
 
     One ``pkt.preprocess`` span: ``on`` "host" or the device's type,
-    ``core_sublevels`` the device k-core's sub-levels (0 on the host), the
-    path's own spans inside.
+    ``core_sublevels`` and ``core_host_reads`` the device k-core's
+    sub-levels and host reads (0 on the host), the path's own spans inside.
     """
     dev = on_device(len(edges), device)
     with trace.span("pkt.preprocess", on=device.type if dev else "host",
-                    core_sublevels=0):
+                    core_sublevels=0, core_host_reads=0):
         if dev:
             return preprocess_device(edges, reorder=reorder, device=device)
         return preprocess(edges, reorder=reorder)

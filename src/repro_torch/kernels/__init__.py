@@ -14,12 +14,14 @@ both (``COUNTS``; the updates: ``peel.UPDATE_COUNTS`` after a fold,
 ``peel.DENSE_COUNTS`` at a level's start; ``peel.LOOP_COUNTS`` the fused
 peel loop, one launch per peel segment), each thread on its own;
 ``count_launches`` reads the calling thread's counts over one block of
-work.
+work.  The k-core of the device preprocessing (``kcore.py``) replaces no
+TPU kernel; its wrapper only launches, and ``core.kcore.coreness`` takes
+its plain version, ``core.kcore.peel_cores``, off the card.
 """
 
 import contextlib
 
-from repro_torch.kernels import intersect, peel, support
+from repro_torch.kernels import intersect, kcore, peel, support
 from repro_torch.kernels.intersect import intersect_blocked, intersect_ref
 from repro_torch.kernels.ops import compute_support_kernel
 from repro_torch.kernels.peel import (dense_update, dense_update_ref,

@@ -26,7 +26,7 @@ import torch
 
 CSRC = pathlib.Path(__file__).with_name("csrc")
 BUILD_DIR = pathlib.Path(__file__).with_name("_build")
-SOURCES = ("support", "peel", "intersect")
+SOURCES = ("support", "peel", "intersect", "kcore")
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -56,6 +56,10 @@ _SIGNATURES = {
         "intersect_i16_launch": ([_VOID] * 6 + [_LL, _INT, _INT, _INT, _VOID],
                                  _INT),
         "intersect_error_string": ([_INT], ctypes.c_char_p),
+    },
+    "kcore": {
+        "kcore_launch": ([_VOID] * 8 + [_INT, _VOID], _INT),
+        "kcore_error_string": ([_INT], ctypes.c_char_p),
     },
 }
 

@@ -10,7 +10,9 @@ that has only the port.  On the card::
 Both loops start from the same state (initial support on the card, slot
 ``m`` processed) and must agree bitwise on ``S_ext``, ``processed``,
 ``levels`` and ``sublevels``; the decompositions must equal the port's
-plain versions on the CPU and the host oracle.
+plain versions on the CPU and the host oracle.  The k-core's one launch
+(``kcore_kernel``) is held the same way against ``peel_cores``, the torch
+loop, on the card, and against the host's ``kcore_numpy``.
 """
 
 from __future__ import annotations
@@ -28,10 +30,12 @@ import torch
 from repro_torch import trace
 from repro_torch.core import prep
 from repro_torch.core import support as support_mod
+from repro_torch.core.kcore import kcore_numpy, peel_cores
 from repro_torch.core.ref import truss_numpy
 from repro_torch.graphs.csr import build_csr
 from repro_torch.graphs.gen import barabasi_albert_edges, rmat_edges
 from repro_torch.kernels import count_launches, cuda_build
+from repro_torch.kernels import kcore as kkcore
 from repro_torch.kernels import peel as kpeel
 from repro_torch.serve.truss_engine import TrussEngine
 
@@ -176,6 +180,80 @@ def test_a_loop_past_its_cap_raises(card):
     with pytest.raises(cuda_build.KernelError, match="sub-levels"):
         kpeel.peel_loop(S_ext, processed, csr.u, csr.v, csr.Es, N, Eid,
                         m=g.m, work_cap=csr.work_cap)
+
+
+def _id_gaps():
+    """Two R-MAT graphs with 5,000 ids between them that hold no edge."""
+    a = rmat_edges(10, edge_factor=16, seed=8)
+    b = rmat_edges(10, edge_factor=16, seed=9)
+    return np.concatenate([a, b + a.max() + 5001])
+
+
+def _star(leaves):
+    return np.stack([np.zeros(leaves, np.int64),
+                     np.arange(1, leaves + 1, dtype=np.int64)], axis=1)
+
+
+def _clique(k):
+    a, b = np.triu_indices(k, 1)
+    return np.stack([a, b], axis=1).astype(np.int64)
+
+
+def _path(k):
+    return np.stack([np.arange(k - 1), np.arange(1, k)],
+                    axis=1).astype(np.int64)
+
+
+CORE_GRAPHS = {
+    "rmat16": lambda: rmat_edges(16, edge_factor=16, seed=7),
+    "gaps": _id_gaps,
+    "clique": lambda: _clique(600),
+    "star": lambda: _star(100_000),
+    "path": lambda: _path(5_000),
+    "small": lambda: _er(60, 0.3, 7),
+}
+
+
+def _torch_loop(arrays):
+    """``peel_cores`` over the CSR's slots on their device."""
+    deg = arrays["Es"][1:] - arrays["Es"][:-1]
+    rows = torch.repeat_interleave(
+        torch.arange(deg.shape[0], dtype=torch.int32, device=deg.device),
+        deg.to(torch.int64), output_size=arrays["N"].shape[0])
+    return peel_cores(arrays["N"], rows, deg)
+
+
+@pytest.mark.parametrize("name", sorted(CORE_GRAPHS))
+def test_core_loop_equals_the_torch_loop(card, name):
+    """One launch of ``kcore_kernel`` gives ``peel_cores``' coreness and
+    sub-levels on the card and BZ's coreness on the host: a scale-16 R-MAT
+    graph with hubs, ids that hold no edge in the middle, a clique, a star
+    of 10^5 slots (one row over many warps), a path (thousands of
+    sub-levels) and a graph under 256 vertices (a one-block grid)."""
+    g = build_csr(CORE_GRAPHS[name]())
+    arrays = g.device_arrays(card)
+    before = kkcore.COUNTS.mine()["kernel"]
+    got = kkcore.core_loop(arrays["Es"], arrays["N"])
+    assert kkcore.COUNTS.mine()["kernel"] == before + 1
+    torch.cuda.synchronize()
+    want, subs = _torch_loop(arrays)
+    assert got.core.dtype == torch.int32 and torch.equal(got.core, want)
+    assert got.sublevels == subs
+    assert np.array_equal(got.core.cpu().numpy(), kcore_numpy(g))
+    assert got.host_reads == 1
+    assert 1 <= got.blocks <= -(-g.n // 256)
+    if g.n < 256:
+        assert got.blocks == 1
+
+
+def test_a_core_loop_past_its_cap_raises(card):
+    """A multigraph row (two vertices, ten slots each way) peels only at
+    level 10, past the 2n sub-levels a simple graph can take: the kernel
+    stops and the wrapper raises."""
+    Es = torch.tensor([0, 10, 20], dtype=torch.int32, device=card)
+    N = torch.tensor([1] * 10 + [0] * 10, dtype=torch.int32, device=card)
+    with pytest.raises(cuda_build.KernelError, match="sub-levels"):
+        kkcore.core_loop(Es, N)
 
 
 @pytest.mark.parametrize("compaction", [None, 0.5])
@@ -383,6 +461,12 @@ def test_truss_pkt_preprocesses_on_the_card_from_its_threshold(card):
     assert pre[0].attrs["core_sublevels"] > 0
     assert pre[1].attrs["core_sublevels"] > 0
     assert pre[2].attrs["core_sublevels"] == 0
+    # the card's k-core: one launch and one read, the torch loop's
+    # sub-levels over the same graph
+    assert [sp.attrs["core_host_reads"] for sp in pre] == [1, 1, 0]
+    g0 = build_csr(E)
+    assert pre[0].attrs["core_sublevels"] == \
+        _torch_loop(g0.device_arrays(card))[1]
 
 
 def test_klevel_handle_toggles_equal_the_cpu(card):

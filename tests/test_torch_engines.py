@@ -102,6 +102,46 @@ def test_kcore_park_matches_reference(name):
     assert np.array_equal(got, kcore_numpy(gp))
 
 
+#: isolated vertices in the middle of the id space
+GAPS = np.array([[0, 1], [1, 2], [0, 2], [2, 3], [9, 10], [10, 11], [9, 11],
+                 [11, 12], [20, 27]], np.int64)
+
+
+@pytest.mark.parametrize("name", sorted(GRAPHS) + ["gaps"])
+def test_coreness_off_the_card_runs_the_torch_loop(name):
+    """``kcore.coreness`` on CPU tensors is ``peel_cores`` over the CSR's
+    slots: BZ's coreness, the torch loop's sub-levels with one host read
+    each, its plain version counted and nothing launched."""
+    from repro_torch.core.kcore import coreness, peel_cores
+    from repro_torch.kernels import kcore as kcore_kernel
+
+    gp = port_build(GAPS) if name == "gaps" else _graphs(name)[1]
+    arrays = gp.device_arrays("cpu")
+    deg = torch.tensor(gp.degrees)
+    rows = torch.repeat_interleave(torch.arange(gp.n, dtype=torch.int32),
+                                   deg.to(torch.int64))
+    want, subs = peel_cores(arrays["N"], rows, deg)
+    before = kcore_kernel.COUNTS.mine()
+    got = coreness(arrays["Es"], arrays["N"])
+    assert kcore_kernel.COUNTS.mine() == {"kernel": before["kernel"],
+                                          "plain": before["plain"] + 1}
+    assert got.core.dtype == torch.int32 and torch.equal(got.core, want)
+    assert np.array_equal(got.core.numpy(), kcore_numpy(gp))
+    assert (got.sublevels, got.host_reads, got.blocks) == (subs, subs, 0)
+    assert 0 < subs <= 2 * gp.n
+
+
+def test_core_loop_runs_only_on_a_card():
+    """The kernel's wrapper launches or refuses: CPU tensors are
+    ``coreness``'s to route to ``peel_cores``."""
+    from repro_torch.kernels import kcore as kcore_kernel
+
+    Es = torch.tensor([0, 1, 2], dtype=torch.int32)
+    N = torch.tensor([1, 0], dtype=torch.int32)
+    with pytest.raises(ValueError, match="CUDA device"):
+        kcore_kernel.core_loop(Es, N)
+
+
 @pytest.mark.parametrize("name", sorted(GRAPHS))
 def test_compute_support_ros_matches_reference(name):
     gr, gp = _graphs(name)

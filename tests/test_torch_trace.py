@@ -302,8 +302,9 @@ def test_profiling_flag_follows_the_profiler():
 def test_device_preprocess_span_carries_its_path_and_sublevels(monkeypatch):
     """``prep.prepare`` on the device path (here the CPU, as ``on_device``
     would choose a card) is one ``pkt.preprocess`` span with the device's
-    type and the k-core's sub-levels (as many as ``kcore.peel_cores``
-    runs), ``preprocess_device``'s three steps inside."""
+    type, the k-core's sub-levels (as many as ``kcore.peel_cores`` runs)
+    and its host reads (off the card, one a sub-level),
+    ``preprocess_device``'s three steps inside."""
     from repro_torch.core import prep
     from repro_torch.core.kcore import peel_cores
 
@@ -319,7 +320,8 @@ def test_device_preprocess_span_carries_its_path_and_sublevels(monkeypatch):
     spans = trace.spans()
     (pre,) = [sp for sp in spans if sp.name == "pkt.preprocess"]
     assert pre.parent is None
-    assert pre.attrs == {"on": "cpu", "core_sublevels": subs}
+    assert pre.attrs == {"on": "cpu", "core_sublevels": subs,
+                         "core_host_reads": subs}
     assert subs > 0
     steps = [sp for sp in spans if sp.parent == pre.id]
     assert [sp.name for sp in steps] == ["prep.canonical", "prep.order",
@@ -359,7 +361,8 @@ def test_one_shot_spans_nest_and_carry_their_counts():
         (sp,) = [sp for sp in spans if sp.name == name]
         assert sp.parent == shot.id
     (pre,) = [sp for sp in spans if sp.name == "pkt.preprocess"]
-    assert pre.attrs == {"on": "host", "core_sublevels": 0}
+    assert pre.attrs == {"on": "host", "core_sublevels": 0,
+                         "core_host_reads": 0}
     for sp in spans:
         if sp is not shot:
             assert "pkt.one_shot" in set(ancestors(sp)), sp.name
